@@ -1,0 +1,208 @@
+"""EPINET-style multi-stream CNN for light-field depth estimation (eval).
+
+The PyTorch counterpart of ``mmlf_tpu.models.feed_forward.FeedForward``,
+eval forward only:
+
+  * public inputs are view stacks ``(b, n, H, W, 3)``, folded to NCHW
+    ``(b, n*3, H, W)`` with view-major channel order (view*3 + colour);
+  * one shared-weight input net for the horizontal+vertical streams and one
+    for the two diagonals.  Orientation is normalized on the activations,
+    as the reference does: the horizontal stream (``'t'``) runs with H and
+    W swapped, the increasing diagonal (``'tf'``) swapped and then mirrored
+    along the original H axis.  (The JAX package folds the same transforms
+    into the kernels instead.)
+  * ``ksize=2`` blocks pad (1,1) on the first conv and (0,0) on the second,
+    so the size goes 512 → 513 → 512, as torch's ``k//2`` / ``k//2 - 1``;
+  * module names give the reference state-dict keys
+    (``in_net_hv.<b>.0/2/3``, ``in_net_id.…``, ``out_net.…``), so a
+    reference ``checkpoint.pt`` loads strictly.
+
+Heads:
+  BASE — 1-channel ``mean``;
+  UPR (``uncert``) — ``mean`` + ``logvar``, plus a Laplace posterior over
+      ``steps`` bins with exp(logvar) as the Laplace *scale* (reference
+      quirk, kept);
+  DPP (``discrete``) — ``steps`` logits, softmax posterior, argmax one-hot
+      → ``class_to_reg`` mean, posterior-variance logvar.
+
+Training mode (batch statistics, ``--pallas_trunk``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.codecs import bin_centers, class_to_reg
+
+
+def laplacian(x: torch.Tensor, mu: torch.Tensor, b: torch.Tensor):
+    """Laplace density over the last (bin) axis.
+
+    :param x: ``(S,)`` evaluation points (bin grid)
+    :param mu: ``(...)`` location
+    :param b: ``(...)`` scale (the reference passes *variance* — quirk)
+    """
+    mu = mu[..., None]
+    b = b[..., None]
+    return 1.0 / (2.0 * b) * torch.exp(-torch.abs(x - mu) / b)
+
+
+def conv_block(cin: int, cout: int, ksize: int, use_bn: bool,
+               out_bn_relu: bool = True) -> nn.Sequential:
+    """[Conv(k) → ReLU → Conv(k) → (BN) → (ReLU)] with shape-preserving
+    pads; indices 0 and 2 are the convs and 3 the BN, as in the reference."""
+    p1 = ksize // 2
+    p2 = p1 if ksize % 2 == 1 else p1 - 1
+    layers = [nn.Conv2d(cin, cout, ksize, padding=p1), nn.ReLU(),
+              nn.Conv2d(cout, cout, ksize, padding=p2)]
+    if out_bn_relu:
+        if use_bn:
+            layers.append(nn.BatchNorm2d(cout))
+        layers.append(nn.ReLU())
+    return nn.Sequential(*layers)
+
+
+def _fold(stack: torch.Tensor) -> torch.Tensor:
+    """(b, n, H, W, 3) -> (b, n*3, H, W), view-major channel order."""
+    b, n, h, w, c = stack.shape
+    return stack.permute(0, 1, 4, 2, 3).reshape(b, n * c, h, w)
+
+
+class FeedForward(nn.Module):
+    """The four-stream light-field depth CNN (eval forward).
+
+    Construct via ``FeedForward.from_config(cfg)``; call with view stacks
+    ``(b, n, H, W, 3)``.  Returns ``{'mean', 'logvar', 'scores',
+    'one_hot', 'posterior'}`` with the JAX package's layouts (bins last).
+    """
+
+    def __init__(self, ksize: int = 2, in_blocks: int = 3,
+                 out_blocks: int = 8, chs: int = 70, views: int = 9,
+                 cross: bool = False, uncert: bool = False,
+                 discrete: bool = False, no_batchnorm: bool = False,
+                 disp_min: float = -3.5, disp_max: float = 3.5):
+        super().__init__()
+        self.ksize = ksize
+        self.cross = cross
+        self.uncert = uncert
+        self.discrete = discrete
+        self.views = views
+        self.disp_min = disp_min
+        self.disp_max = disp_max
+        use_bn = not no_batchnorm
+
+        def stream_net():
+            return nn.Sequential(*[
+                conv_block(views * 3 if b == 0 else chs, chs, ksize, use_bn)
+                for b in range(in_blocks)])
+
+        self.in_net_hv = stream_net()
+        self.in_net_id = None if cross else stream_net()
+
+        cat_chs = (2 if cross else 4) * chs
+        out_chs = 1
+        if uncert:
+            out_chs = 2
+        elif discrete:
+            out_chs = self.steps
+        self.out_net = nn.Sequential(
+            *[conv_block(cat_chs, cat_chs, ksize, use_bn)
+              for _ in range(out_blocks - 1)],
+            conv_block(cat_chs, out_chs, ksize, use_bn, out_bn_relu=False))
+
+    @classmethod
+    def from_config(cls, cfg) -> 'FeedForward':
+        for flag, item in (('model_unet', 'models/unet.py'),
+                           ('model_inn', 'the INN'),
+                           ('model_invertible', 'the INN'),
+                           ('bf16', 'analysis CLIs')):
+            if getattr(cfg, flag, False):
+                raise NotImplementedError(
+                    f'{flag} is not ported to mmlf_tpu_torch yet '
+                    f'(ROADMAP.md, Queue 1: {item})')
+        return cls(ksize=cfg.model_ksize, in_blocks=cfg.model_in_blocks,
+                   out_blocks=cfg.model_out_blocks, chs=cfg.model_chs,
+                   views=cfg.model_views, cross=cfg.model_cross,
+                   uncert=cfg.model_uncert, discrete=cfg.model_discrete,
+                   no_batchnorm=cfg.model_no_batchnorm,
+                   disp_min=cfg.val_disp_min, disp_max=cfg.val_disp_max)
+
+    @property
+    def steps(self) -> int:
+        return (2 if self.cross else 4) * self.views * 3
+
+    def forward(self, h_views, v_views, i_views=None, d_views=None):
+        if self.training:
+            raise NotImplementedError(
+                'train-mode forward is not ported yet (ROADMAP.md, '
+                'Queue 1: the train step); call .eval() first')
+        # 't': the reference's transpose of the horizontal stream
+        x_h = _fold(h_views).transpose(2, 3)
+        f_h = self.in_net_hv(x_h).transpose(2, 3)
+        f_v = self.in_net_hv(_fold(v_views))
+        feats = [f_h, f_v]
+        if not self.cross:
+            # 'tf': transpose, then mirror the original-H axis (now last)
+            x_i = _fold(i_views).transpose(2, 3).flip(-1)
+            f_i = self.in_net_id(x_i).flip(-1).transpose(2, 3)
+            f_d = self.in_net_id(_fold(d_views))
+            feats += [f_i, f_d]
+
+        output = self.out_net(torch.cat(feats, dim=1)).float()
+        mean = output[:, 0]
+
+        scores = one_hot = posterior = logvar = None
+        bins = bin_centers(self.disp_min, self.disp_max, self.steps,
+                           output.device)
+
+        if self.discrete:
+            scores = output.permute(0, 2, 3, 1)                # (b, H, W, S)
+            one_hot = (torch.amax(scores, dim=-1, keepdim=True)
+                       == scores).float()
+            posterior = torch.exp(scores)
+            posterior = posterior / torch.sum(posterior, -1, keepdim=True)
+            mean = class_to_reg(one_hot, self.disp_min, self.disp_max,
+                                self.steps)
+            var = torch.sum((bins - mean[..., None]) ** 2.0 * posterior,
+                            dim=-1)
+            logvar = torch.log(var)
+
+        if self.uncert:
+            logvar = output[:, 1]
+            # reference quirk: exp(logvar) is the Laplace *scale*, not var
+            posterior = laplacian(bins, mean, torch.exp(logvar))
+
+        return {'mean': mean, 'logvar': logvar, 'scores': scores,
+                'one_hot': one_hot, 'posterior': posterior}
+
+
+@torch.no_grad()
+def init_live_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Random weights that keep the net input-sensitive, in place.
+
+    Kaiming-normal convs, 0.1-scale biases and BN affines, BN running stats
+    near identity — the scheme of the JAX package's parity tests.  Small
+    uniform weights would attenuate every input to ~1e-7 through the
+    11-block trunk and leave only the bias path to compare.
+    """
+    gen = torch.Generator(device='cpu').manual_seed(seed)
+
+    def randn(p):
+        return torch.randn(p.shape, generator=gen, dtype=p.dtype)
+
+    def rand(p):
+        return torch.rand(p.shape, generator=gen, dtype=p.dtype)
+
+    for p in model.parameters():
+        if p.ndim == 4:
+            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            p.copy_(randn(p) * (2.0 / fan_in) ** 0.5)
+        else:
+            p.copy_(randn(p) * 0.1)
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.weight.copy_(rand(m.weight) * 0.5 + 0.75)
+            m.running_mean.copy_(randn(m.running_mean) * 0.1)
+            m.running_var.copy_(rand(m.running_var) * 0.5 + 0.75)
+    return model

@@ -1,0 +1,89 @@
+"""Carry weights between the JAX package, reference checkpoints and the port.
+
+The port's ``FeedForward`` uses the reference state-dict keys, so a
+reference ``checkpoint.pt`` loads as it is.  ``state_dict_from_jax`` maps
+the JAX package's variable tree onto the same keys:
+
+  ``params/in_net_hv/block<b>/conv1``   → ``in_net_hv.<b>.0`` (Conv)
+  ``params/in_net_hv/block<b>/conv2``   → ``in_net_hv.<b>.2`` (Conv)
+  ``params/in_net_hv/block<b>/bn`` +
+  ``batch_stats/in_net_hv/block<b>/bn`` → ``in_net_hv.<b>.3`` (BatchNorm)
+  ``in_net_id``, ``out_net``            → likewise
+
+Conv kernels transpose HWIO → OIHW.  Input-channel order is the same
+(view-major, colour-minor) in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
+    """``{'params', 'batch_stats'}`` of ``mmlf_tpu.models.FeedForward``
+    (numpy leaves) → the port's state dict.
+
+    :param cfg: a ``Config`` (or its dict) with the block counts and
+        ``model_cross``
+    """
+    cfg = cfg if isinstance(cfg, dict) else cfg.to_dict()
+    if cfg.get('model_unet'):
+        raise NotImplementedError('U-Net weights are not ported yet '
+                                  '(ROADMAP.md, Queue 1: models/unet.py)')
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def export_net(name: str, n_blocks: int):
+        for b in range(n_blocks):
+            blk = params[name][f'block{b}']
+            for conv, idx in (('conv1', 0), ('conv2', 2)):
+                kernel = np.transpose(np.asarray(blk[conv]['kernel']),
+                                      (3, 2, 0, 1))
+                sd[f'{name}.{b}.{idx}.weight'] = _tensor(kernel)
+                sd[f'{name}.{b}.{idx}.bias'] = _tensor(blk[conv]['bias'])
+            if 'bn' in blk:
+                bn_s = stats[name][f'block{b}']['bn']
+                sd[f'{name}.{b}.3.weight'] = _tensor(blk['bn']['scale'])
+                sd[f'{name}.{b}.3.bias'] = _tensor(blk['bn']['bias'])
+                sd[f'{name}.{b}.3.running_mean'] = _tensor(bn_s['mean'])
+                sd[f'{name}.{b}.3.running_var'] = _tensor(bn_s['var'])
+                sd[f'{name}.{b}.3.num_batches_tracked'] = torch.tensor(
+                    0, dtype=torch.int64)
+
+    export_net('in_net_hv', cfg['model_in_blocks'])
+    if not cfg.get('model_cross', False):
+        export_net('in_net_id', cfg['model_in_blocks'])
+    export_net('out_net', cfg['model_out_blocks'])
+    return sd
+
+
+def save_checkpoint_pt(path: str, state_dict: dict, cfg, epoch=None,
+                       iteration: int = 0, loss: float = 0.0) -> None:
+    """Write a reference-format ``checkpoint.pt``."""
+    cfg_dict = cfg if isinstance(cfg, dict) else cfg.to_dict()
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+    torch.save({'model_state_dict': sd, 'optimizer_state_dict': None,
+                'hyper_parameters': cfg_dict, 'epoch': epoch,
+                'iteration': iteration, 'loss': loss}, path)
+
+
+def load_checkpoint_pt(path: str) -> tuple:
+    """Load a reference-format ``checkpoint.pt``.
+
+    Returns ``(state_dict, hyper_parameters)``: the model state dict with
+    temporary ``*tmp*`` keys stripped, and the stored config dict.  The
+    payload holds tensors and plain Python values only, so it is read with
+    ``weights_only=True``: unpickling runs no code from the file.
+    """
+    state = torch.load(path, map_location='cpu', weights_only=True)
+    sd = {k: v for k, v in state['model_state_dict'].items()
+          if 'tmp' not in k}
+    return sd, dict(state['hyper_parameters'])

@@ -1,0 +1,392 @@
+"""Validation / inference CLI — full-scene metrics + artifact dump.
+
+``python -m mmlf_tpu_torch.validate.cli OUTPUT_DIR DATASET [flags]`` with the
+flags of ``mmlf_tpu.validate.cli`` (plus ``--device``).
+
+Flow: the model is rebuilt from the checkpoint's stored hyper-parameters,
+with CLI flags overriding only ``model_discrete``, the disparity range and
+``train_shift``; BatchNorm is folded into the convolutions; scenes run at
+full resolution (batch 1) through the model or, with ``--val_ensamble``,
+the 70-member shift ensemble; per-scene MSE / BadPix(0.07) with a margin
+mask; the head's output becomes a 108-bin posterior for KLD (all /
+multimodal / unimodal pixels) and NLL; the artifacts are written by
+``save_batch``, and a LaTeX-ready result row is printed.  The metric branch
+is keyed off the STORED config, as in the reference.
+
+Runs on the card by default (``--device cuda``) in float32 with TF32 off,
+and raises when CUDA is asked for but absent.  Reads a reference-format
+``checkpoint.pt``.  Not ported yet (each raises NotImplementedError):
+``--val_tile``, ``--mesh_space``, ``--mesh_ensemble``, U-Net / INN /
+invertible checkpoints, and run directories holding only the JAX package's
+``checkpoint.msgpack``.  ``--jax_cache`` has no counterpart: nothing is
+compiled per scene here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import click
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data import transforms as T
+from ..data.hci4d import HCI4D, pad_mpi
+from ..losses import masked_badpix, masked_mse
+from ..models.ensemble import ensemble_forward, ensemble_grid
+from ..models.feed_forward import FeedForward
+from ..ops.codecs import mpi_to_weights
+from ..ops.masks import create_mask_margin
+from ..utils.convert import load_checkpoint_pt
+from ..utils.fold_bn import fold_batchnorm
+from . import calibrate
+from . import posteriors as P
+
+CKPT_PT = 'checkpoint.pt'
+CKPT_MSGPACK = 'checkpoint.msgpack'
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f'{what} is not ported to mmlf_tpu_torch yet (ROADMAP.md, {item}); '
+        f'use python -m mmlf_tpu.validate.cli for it')
+
+
+def resolve_device(device) -> torch.device:
+    """The run's device.  CUDA must be present when asked for (no silent
+    CPU run), and fp32 convolutions and matmuls then run without TF32."""
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError(f'device {device!r} requested but CUDA is '
+                               f'not available; pass device="cpu" to run '
+                               f'on the CPU')
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def load_model_state(output_dir: str):
+    """Load ``(state_dict, stored_config_dict)`` from ``checkpoint.pt``."""
+    pt = os.path.join(output_dir, CKPT_PT)
+    if os.path.exists(pt):
+        return load_checkpoint_pt(pt)
+    if os.path.exists(os.path.join(output_dir, CKPT_MSGPACK)):
+        raise _not_ported(f'reading {CKPT_MSGPACK}',
+                          'Queue 1: checkpoint.msgpack reading')
+    raise FileNotFoundError(f'no {CKPT_PT} in {output_dir}')
+
+
+def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
+                    val_disp_min: float, val_disp_max: float,
+                    val_disp_step: float, val_loss_margin: int,
+                    n_bins: int = 108):
+    """Forward + every metric for one scene.
+
+    Returns ``scene_eval(h, v, i, d, gt, mpi, offsets=None) -> (output,
+    metrics)`` on device tensors (batch-first stacks, gt ``(b, H, W)``,
+    MPI ``(b, K, H, W, 5)``); metrics are 0-d tensors.
+    """
+
+    def net_forward(h, v, i, d, offsets):
+        if val_ensamble:
+            return ensemble_forward(model, h, v, i, d,
+                                    disp_min=val_disp_min,
+                                    disp_max=val_disp_max,
+                                    disp_step=val_disp_step,
+                                    member_offsets=offsets)
+        return model(h, v, i, d)
+
+    def metrics_from_output(output, gt, mpi):
+        mask = create_mask_margin(gt.shape, val_loss_margin, gt.device)
+        mse = masked_mse(output, gt, mask)
+        bad_pix = masked_badpix(output, gt, mask)
+
+        dist_gt = mpi_to_weights(mpi, cfg.val_disp_min, cfg.val_disp_max,
+                                 n_bins)
+
+        # head-specific 108-bin posterior + NLL, keyed off the STORED config
+        nll_eval = torch.zeros((), device=gt.device)
+        if kwargs.get('val_ensamble'):
+            # reference quirk: exp(logvars) is passed as "logvars" and
+            # exponentiated again inside (see posteriors.lmm_to_discrete)
+            dist = P.lmm_to_discrete(n_bins, cfg.val_disp_min,
+                                     cfg.val_disp_max, output['means'],
+                                     torch.exp(output['logvars']))
+        elif kwargs.get('model_discrete'):
+            weights = mpi_to_weights(mpi, cfg.val_disp_min,
+                                     cfg.val_disp_max, model.steps)
+            dist = output['posterior']
+            nll_eval = P.nll_discrete(weights, output['posterior'])
+        elif kwargs.get('model_uncert'):
+            dist = P.laplace_to_discrete(n_bins, cfg.val_disp_min,
+                                         cfg.val_disp_max, output['mean'],
+                                         output['logvar'])
+            nll_eval = P.nll_laplace(mpi, output['mean'], output['logvar'])
+        else:
+            nll_eval = P.nll_laplace(mpi, output['mean'],
+                                     torch.zeros_like(output['mean']))
+            dist = P.mean_to_discrete(n_bins, cfg.val_disp_min,
+                                      cfg.val_disp_max, output['mean'])
+
+        mm_mask = P.multimodal_mask(mpi)
+        kld = P.kl_divergence(dist, dist_gt)
+        kld_mm = P.kl_divergence(dist, dist_gt, mm_mask)
+        kld_um = P.kl_divergence(dist, dist_gt, 1.0 - mm_mask)
+
+        return {'mse': mse, 'bad_pix': bad_pix, 'nll': nll_eval,
+                'kld': kld, 'kld_mm': kld_mm, 'kld_um': kld_um}
+
+    @torch.no_grad()
+    def scene_eval(h, v, i, d, gt, mpi, offsets=None):
+        output = net_forward(h, v, i, d, offsets)
+        return output, metrics_from_output(output, gt, mpi)
+
+    return scene_eval
+
+
+def _to_device(sample, dev):
+    """Batch-1 device tensors of a sample's four stacks, gt and padded
+    MPI."""
+    h, v, i, d, _, gt, mpi = sample[:7]
+    stacks = [torch.from_numpy(np.ascontiguousarray(x[None])).to(dev)
+              for x in (h, v, i, d)]
+    return (stacks, torch.from_numpy(gt[None].copy()).to(dev),
+            torch.from_numpy(pad_mpi(mpi)[None]).to(dev))
+
+
+def run_validation(output_dir, dataset, model_discrete=False,
+                   val_loss_margin=15, val_ensamble=False,
+                   val_disp_step=0.1, val_disp_min=-3.5, val_disp_max=3.5,
+                   train_shift=0.0, val_tile=0, mesh_space=1,
+                   mesh_ensemble=1, val_recalibrate='', val_cal_scenes=2,
+                   val_save_calibration='', device='cuda'):
+    """Programmatic entry (the CLI body); returns the metric averages."""
+    dev = resolve_device(device)
+    if val_tile > 0:
+        raise _not_ported('--val_tile', 'Queue 1: tiled inference')
+    if mesh_space > 1:
+        raise _not_ported('--mesh_space', 'Queue 1: data parallel')
+    if mesh_ensemble > 1:
+        raise _not_ported('--mesh_ensemble', 'Queue 1: data parallel')
+
+    state, kwargs = load_model_state(output_dir)
+    # stored config + whitelisted CLI overrides
+    kwargs.update({'model_discrete': model_discrete,
+                   'val_disp_min': val_disp_min,
+                   'val_disp_max': val_disp_max,
+                   'train_shift': train_shift})
+    cfg = Config.from_dict(kwargs)
+
+    transform = T.Shift(float(kwargs['train_shift']))
+    valset = HCI4D(dataset, transform=transform)
+
+    # inference is eval-mode only: fold BatchNorm into the convolutions
+    fold = not cfg.model_no_batchnorm
+    if fold:
+        cfg = Config.from_dict({**cfg.to_dict(), 'model_no_batchnorm': True})
+    model = FeedForward.from_config(cfg)      # raises for unported models
+    model.load_state_dict(fold_batchnorm(state) if fold else state,
+                          strict=True)
+    model.to(dev).eval()
+    print('Number of parameters:',
+          sum(p.numel() for p in model.parameters()))
+
+    n_bins = 108
+    scene_eval = make_scene_eval(model, cfg, kwargs, val_ensamble,
+                                 val_disp_min, val_disp_max, val_disp_step,
+                                 val_loss_margin, n_bins)
+
+    # --- ESE logvar-calibration machinery (validate/calibrate.py) ---
+    shifts_grid = None
+    member_offsets = None
+    if val_ensamble:
+        shifts_grid = ensemble_grid(val_disp_min, val_disp_max,
+                                    val_disp_step)
+        if val_recalibrate:
+            calset = HCI4D(val_recalibrate, transform=transform)
+            cal_stats = []
+            for j in range(min(val_cal_scenes, len(calset.scenes))):
+                print(f'Calibrating on scene {j} of {val_recalibrate}...')
+                sample = calset[j]
+                stacks, cgt, cmpi = _to_device(sample, dev)
+                out_c, _ = scene_eval(*stacks, cgt, cmpi)
+                m = create_mask_margin(sample[5].shape, val_loss_margin)
+                cal_stats.append((out_c['means'][:, 0].cpu().numpy(),
+                                  out_c['logvars'][:, 0].cpu().numpy(),
+                                  sample[5], m.numpy()))
+            member_offsets = calibrate.fit_member_offsets(cal_stats)
+            print(f'Fitted member logvar offsets: mean '
+                  f'{member_offsets.mean():+.3f}, range '
+                  f'[{member_offsets.min():+.3f}, '
+                  f'{member_offsets.max():+.3f}]')
+    cal_scenes = []
+
+    mse_avg = bad_pix_avg = 0.0
+    kld_avg = kld_mm_avg = kld_um_avg = nll_eval_avg = 0.0
+    runtime = 0.0
+    nll_eval = 0.0
+    n_scenes = len(valset.scenes)
+
+    for i in range(n_scenes):
+        print(f'Processing scene {i}...')
+        t_start = time.time()
+
+        sample = valset[i]
+        gt, index = sample[5], sample[8]
+        stacks, gt_t, mpi_t = _to_device(sample, dev)
+        output, metrics = scene_eval(*stacks, gt_t, mpi_t, member_offsets)
+        metrics = {k: float(v) for k, v in metrics.items()}
+
+        means_np = logvars_np = None
+        if output.get('means') is not None:
+            means_np = output['means'].cpu().numpy()
+            logvars_np = output['logvars'].cpu().numpy()
+        if val_ensamble and means_np is not None:
+            m = create_mask_margin(gt.shape, val_loss_margin).numpy()
+            cal_scenes.append(calibrate.scene_calibration(
+                shifts_grid, means_np[:, 0], logvars_np[:, 0], gt, m))
+
+        mse_avg += metrics['mse']
+        bad_pix_avg += metrics['bad_pix']
+        print(metrics['mse'], metrics['bad_pix'])
+
+        mean = output['mean'].cpu().numpy()
+        logvar = output.get('logvar')
+        logvar = None if logvar is None else logvar.cpu().numpy()
+
+        # ESE mixture parameters; note vars := exp(logvars) — the reference
+        # stores and *reuses* these as "logvars" downstream (quirk)
+        lmm = None
+        if means_np is not None and logvars_np is not None:
+            lmm = np.stack([means_np, np.exp(logvars_np)], 0)
+
+        scores = output.get('scores')
+        nll_arr = None if scores is None else \
+            scores.permute(0, 3, 1, 2).cpu().numpy()
+
+        posterior = output.get('posterior')
+        post_arr = None if posterior is None else \
+            posterior.permute(0, 3, 1, 2).cpu().numpy()
+
+        runtime = time.time() - t_start
+        valset.save_batch(output_dir, np.asarray(index)[None], mean,
+                          logvar, runtime, lmm, nll_arr, post_arr)
+
+        nll_eval = metrics['nll']
+        print(metrics['kld_um'], metrics['kld_mm'], metrics['kld'])
+
+        kld_avg += metrics['kld']
+        kld_mm_avg += metrics['kld_mm']
+        kld_um_avg += metrics['kld_um']
+        nll_eval_avg += nll_eval
+
+    mse_avg /= n_scenes
+    bad_pix_avg /= n_scenes
+    kld_avg /= n_scenes
+    kld_mm_avg /= n_scenes
+    kld_um_avg /= n_scenes
+    nll_eval_avg /= n_scenes
+
+    print('MSE & BadPix007 & KLD_UM & KLD_MM & KLD & - & TIME \\\\')
+    print(f'{mse_avg:.3f} & {bad_pix_avg:.3f} & {kld_um_avg:.3f} & '
+          f'{kld_mm_avg:.3f} & {kld_avg:.3f} & - & {runtime:.3f} \\\\')
+    print('NLL: ', nll_eval)
+
+    result = {'mse': mse_avg, 'badpix': bad_pix_avg, 'kld': kld_avg,
+              'kld_mm': kld_mm_avg, 'kld_um': kld_um_avg,
+              'nll': nll_eval_avg, 'runtime': runtime}
+
+    if cal_scenes:
+        report = calibrate.calibration_report(cal_scenes, mse_avg)
+        bare = ('n/a' if report['bare_mse'] is None
+                else f"{report['bare_mse']:.5f}")
+        print(f"ESE calibration: rank-corr {report['rank_corr']:+.3f}, "
+              f"bare MSE {bare}, ESE MSE {report['ese_mse']:.5f}"
+              + (' (recalibrated)' if member_offsets is not None else ''))
+        for w in report['warnings']:
+            print(w, file=sys.stderr)
+        result['ese_calibration'] = report
+        if val_save_calibration:
+            payload = dict(report,
+                           member_offsets=None if member_offsets is None
+                           else [float(x) for x in member_offsets],
+                           val_disp_min=val_disp_min,
+                           val_disp_max=val_disp_max,
+                           val_disp_step=val_disp_step)
+            with open(val_save_calibration, 'w') as f:
+                json.dump(payload, f, indent=1)
+            print(f'calibration report written to {val_save_calibration}')
+
+    return result
+
+
+@click.command()
+@click.argument('output_dir', type=click.Path(exists=True))
+@click.argument('dataset', type=click.Path(exists=True))
+@click.option('--model_invertible', is_flag=True,
+              help='Use invertible architecture? (not ported: raises)')
+@click.option('--model_discrete', is_flag=True,
+              help='Discretize disparity output?')
+@click.option('--val_loss_margin', default=15,
+              help='Margin around each image to omit for the validation loss')
+@click.option('--val_ensamble', is_flag=True,
+              help='Use a network ensamble?')
+@click.option('--val_disp_min', default=-3.5,
+              help='Minimum disparity of dataset')
+@click.option('--val_disp_max', default=3.5,
+              help='Maximum disparity of dataset')
+@click.option('--val_disp_step', default=0.1,
+              help='Disparity increment for ensamble')
+@click.option('--train_shift', default=0.0, type=float,
+              help='Static shift to apply to off-center training datasets')
+@click.option('--val_tile', default=0, type=int,
+              help='Tiled inference with this interior tile size '
+                   '(not ported: raises unless 0)')
+@click.option('--mesh_space', default=1, type=int,
+              help='Spatial sharding over devices (not ported: raises '
+                   'unless 1)')
+@click.option('--mesh_ensemble', default=1, type=int,
+              help='Ensemble members sharded over devices (not ported: '
+                   'raises unless 1)')
+@click.option('--val_recalibrate', default=None,
+              type=click.Path(exists=True, dir_okay=True, file_okay=False),
+              help='Requires --val_ensamble: fit per-member logvar offsets '
+                   'on --val_cal_scenes scenes of this calibration dataset '
+                   'and apply them to member selection and the mixture '
+                   'posterior (validate/calibrate.py).')
+@click.option('--val_cal_scenes', default=2, type=int,
+              help='Number of calibration scenes --val_recalibrate fits on.')
+@click.option('--val_save_calibration', default='', type=click.Path(),
+              help='Write the ESE calibration report (and fitted offsets, '
+                   'if any) as JSON.')
+@click.option('--device', default='cuda',
+              help='Torch device to run on (default cuda; raises when CUDA '
+                   'is absent — pass cpu to run on the CPU).')
+def main(output_dir, dataset, model_invertible, model_discrete,
+         val_loss_margin, val_ensamble, val_disp_step, val_disp_min,
+         val_disp_max, train_shift, val_tile, mesh_space, mesh_ensemble,
+         val_recalibrate, val_cal_scenes, val_save_calibration, device):
+    if model_invertible:
+        raise _not_ported('--model_invertible', 'Queue 1: the INN')
+    return run_validation(output_dir, dataset, model_discrete=model_discrete,
+                          val_loss_margin=val_loss_margin,
+                          val_ensamble=val_ensamble,
+                          val_disp_step=val_disp_step,
+                          val_disp_min=val_disp_min,
+                          val_disp_max=val_disp_max,
+                          train_shift=train_shift, val_tile=val_tile,
+                          mesh_space=mesh_space,
+                          mesh_ensemble=mesh_ensemble,
+                          val_recalibrate=val_recalibrate,
+                          val_cal_scenes=val_cal_scenes,
+                          val_save_calibration=val_save_calibration,
+                          device=device)
+
+
+if __name__ == '__main__':
+    main()

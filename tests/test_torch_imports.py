@@ -1,0 +1,91 @@
+"""The port stands alone: mmlf_tpu_torch imports neither JAX nor any module
+of mmlf_tpu, builds nothing at import, and its entry points run on CUDA by
+default and raise where CUDA is absent."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, 'mmlf_tpu_torch')
+
+_PROBE = r'''
+import importlib, pkgutil, sys
+import mmlf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mmlf_tpu_torch.__path__,
+                                               'mmlf_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+from mmlf_tpu_torch.ops.kernels import build
+bad = sorted(k for k in sys.modules
+             if k in ('jax', 'flax', 'optax', 'triton', 'mmlf_tpu')
+             or k.startswith(('jax.', 'flax.', 'optax.', 'mmlf_tpu.')))
+assert not bad, bad
+assert build.load.cache_info().currsize == 0, 'a kernel was loaded'
+print(len(names))
+'''
+
+
+def test_port_imports_no_jax_or_mmlf_tpu():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+# an import of jax/flax/optax/mmlf_tpu (not mmlf_tpu_torch), in statement
+# or string form; docstrings may still name the JAX counterpart of a module
+_FORBIDDEN = re.compile(
+    r'^\s*(?:from|import)\s+(?:jax|flax|optax|mmlf_tpu(?!_torch))\b'
+    r'|import_module\(\s*[\'"](?:jax|flax|optax|mmlf_tpu(?!_torch))\b'
+    r'|__import__\(\s*[\'"](?:jax|flax|optax|mmlf_tpu(?!_torch))\b',
+    re.MULTILINE)
+
+
+def test_sources_have_no_forbidden_imports():
+    scanned = 0
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith('.py'):
+                with open(os.path.join(root, f)) as fh:
+                    text = fh.read()
+                assert not _FORBIDDEN.search(text), os.path.join(root, f)
+                scanned += 1
+    assert scanned >= 20
+    with open(os.path.join(REPO, 'chip_smoke.py')) as fh:
+        assert not _FORBIDDEN.search(fh.read()), 'chip_smoke.py'
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('this machine has CUDA; the test is for one without')
+    from click.testing import CliRunner
+
+    from mmlf_tpu_torch.validate.cli import main, run_validation
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        run_validation(str(tmp_path), str(tmp_path), device='cuda')
+    res = CliRunner().invoke(main, [str(tmp_path), str(tmp_path),
+                                    '--val_ensamble'])
+    assert isinstance(res.exception, RuntimeError), res.output
+
+
+def test_kernel_wrapper_takes_plain_version_only_on_cpu():
+    from mmlf_tpu_torch.ops.kernels import posterior as K
+
+    before = K.laplace_mixture_posterior.launches
+    m = torch.zeros(2, 3)
+    out = K.laplace_mixture_posterior(m, torch.ones(2, 3), torch.zeros(4))
+    assert out.shape == (3, 4)
+    assert K.laplace_mixture_posterior.launches == before
+    with pytest.raises(ValueError, match='device'):
+        K.laplace_mixture_posterior(m.to('meta'), torch.ones(2, 3,
+                                                             device='meta'),
+                                    torch.zeros(4, device='meta'))
+    with pytest.raises(TypeError, match='float32'):
+        K.laplace_mixture_posterior(m.double(), torch.ones(2, 3),
+                                    torch.zeros(4))
