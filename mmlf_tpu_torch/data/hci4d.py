@@ -134,11 +134,15 @@ def pad_mpi(mpi: np.ndarray, k: int = MAX_MPI_PLANES) -> np.ndarray:
 
 class HCI4D:
     """Dataset over a directory of scene subdirectories: ``__getitem__``
-    gives the 9-tuple, ``save_batch`` writes the artifact tree."""
+    gives the 9-tuple, ``save_batch`` writes the artifact tree.
+
+    ``cache=True`` loads every scene once (``cache_scenes``) into
+    ``self.data``; ``length`` > 0 gives the dataset that virtual length
+    (indices wrap around the scenes)."""
 
     def __init__(self, root: str, nviews=(9, 9),
-                 transform: Optional[Callable] = None,
-                 texture_mask: bool = True):
+                 transform: Optional[Callable] = None, cache: bool = False,
+                 length: int = 0, texture_mask: bool = True):
         self.root = root
         self.name = os.path.basename(root)
         entries = sorted((f.name, f.path) for f in os.scandir(root)
@@ -147,15 +151,29 @@ class HCI4D:
         self.scenes = [p for _, p in entries]
         self.nviews = nviews
         self.transform = transform
+        self.length = length
         self.texture_mask = texture_mask
 
+        self.cache = cache
+        self.data = []
+        if cache:
+            self.cache_scenes()
+
+    def cache_scenes(self):
+        print(f'Caching dataset "{self.name}"...')
+        self.data = [load_scene(s, self.nviews, i, self.texture_mask)
+                     for i, s in enumerate(self.scenes)]
+
     def __len__(self):
-        return len(self.scenes)
+        return self.length if self.length else len(self.scenes)
 
     def __getitem__(self, index: int):
         index = index % len(self.scenes)
-        data = load_scene(self.scenes[index], self.nviews, index,
-                          self.texture_mask)
+        if self.cache:
+            data = self.data[index]
+        else:
+            data = load_scene(self.scenes[index], self.nviews, index,
+                              self.texture_mask)
         if self.transform:
             data = self.transform(copy.deepcopy(data))
         return data

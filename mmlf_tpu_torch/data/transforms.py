@@ -1,7 +1,8 @@
 """Host-side (numpy) transforms over the 9-tuple sample.
 
-Only what the validate path needs: the static ``Shift`` (``train_shift``)
-and the numpy EPI-Shift helpers it and the synthetic-scene generator use.
+What the ported paths need: the static ``Shift`` (``train_shift``), the
+numpy EPI-Shift helpers it and the synthetic-scene generator use, and the
+random colour matrix the training pipeline samples.
 The sample is ``(h_views, v_views, i_views, d_views, center, gt, mpi, mask,
 index)`` with stacks ``(n, H, W, 3)``, gt ``(H, W)``, MPI ``(K, H, W, 5)``.
 """
@@ -70,3 +71,23 @@ class Shift:
             data[6] = data[6].copy()
             data[6][..., 4] -= np.float32(self.disp)
         return tuple(data)
+
+
+def random_color_matrix(rng: np.random.Generator) -> np.ndarray:
+    """The reference's random row/column-stochastic 3×3 colour mix, drawn
+    from ``rng`` in the order of ``mmlf_tpu.data.transforms`` (the same
+    generator state gives the same matrix)."""
+    def u(a, b):
+        return float(rng.uniform(a, b))
+
+    m = np.zeros((3, 3))
+    m[0, 0] = u(0.0, 1.0)
+    m[0, 1] = u(0.0, 1.0 - m[0, 0])
+    m[1, 0] = u(0.0, 1.0 - m[0, 0])
+    m[1, 1] = u(0.0, 1.0 - max(m[0, 1], m[1, 0]))
+    m[0, 2] = 1.0 - m[0, 0] - m[0, 1]
+    m[1, 2] = 1.0 - m[1, 0] - m[1, 1]
+    m[2, 0] = 1.0 - m[0, 0] - m[1, 0]
+    m[2, 1] = 1.0 - m[0, 1] - m[1, 1]
+    m[2, 2] = m[0, 0] + m[0, 1] + m[1, 0] + m[1, 1] - 1.0
+    return m.astype(np.float32)

@@ -1,10 +1,12 @@
-"""EPINET-style multi-stream CNN for light-field depth estimation (eval).
+"""EPINET-style multi-stream CNN for light-field depth estimation.
 
 The PyTorch counterpart of ``mmlf_tpu.models.feed_forward.FeedForward``,
-eval forward only:
+eval and train forward:
 
   * public inputs are view stacks ``(b, n, H, W, 3)``, folded to NCHW
     ``(b, n*3, H, W)`` with view-major channel order (view*3 + colour);
+    ``folded=True`` takes stacks already in that layout (the training
+    input pipeline emits it, ``data/augment2.py``);
   * one shared-weight input net for the horizontal+vertical streams and one
     for the two diagonals.  Orientation is normalized on the activations,
     as the reference does: the horizontal stream (``'t'``) runs with H and
@@ -25,7 +27,12 @@ Heads:
   DPP (``discrete``) — ``steps`` logits, softmax posterior, argmax one-hot
       → ``class_to_reg`` mean, posterior-variance logvar.
 
-Training mode (batch statistics, ``--pallas_trunk``) is not ported yet.
+BatchNorm is ``ops/batchnorm.BatchNorm2d``: in train mode it normalizes
+with the batch statistics and keeps the biased variance in its running
+stats, with ``model_batchnorm_momentum`` as torch's momentum.
+``init_default_`` gives the JAX package's initial distributions
+(lecun-normal convs, zero biases, BN 1/0, running stats 0/1).  The fused
+trunk of ``--pallas_trunk`` is not ported yet (ROADMAP.md Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.batchnorm import BatchNorm2d
 from ..ops.codecs import bin_centers, class_to_reg
 
 
@@ -49,16 +57,18 @@ def laplacian(x: torch.Tensor, mu: torch.Tensor, b: torch.Tensor):
 
 
 def conv_block(cin: int, cout: int, ksize: int, use_bn: bool,
-               out_bn_relu: bool = True) -> nn.Sequential:
+               out_bn_relu: bool = True,
+               bn_momentum: float = 0.1) -> nn.Sequential:
     """[Conv(k) → ReLU → Conv(k) → (BN) → (ReLU)] with shape-preserving
-    pads; indices 0 and 2 are the convs and 3 the BN, as in the reference."""
+    pads; indices 0 and 2 are the convs and 3 the BN, as in the reference.
+    ``bn_momentum`` is torch's convention (flax's is ``1 - this``)."""
     p1 = ksize // 2
     p2 = p1 if ksize % 2 == 1 else p1 - 1
     layers = [nn.Conv2d(cin, cout, ksize, padding=p1), nn.ReLU(),
               nn.Conv2d(cout, cout, ksize, padding=p2)]
     if out_bn_relu:
         if use_bn:
-            layers.append(nn.BatchNorm2d(cout))
+            layers.append(BatchNorm2d(cout, momentum=bn_momentum))
         layers.append(nn.ReLU())
     return nn.Sequential(*layers)
 
@@ -70,17 +80,20 @@ def _fold(stack: torch.Tensor) -> torch.Tensor:
 
 
 class FeedForward(nn.Module):
-    """The four-stream light-field depth CNN (eval forward).
+    """The four-stream light-field depth CNN.
 
     Construct via ``FeedForward.from_config(cfg)``; call with view stacks
-    ``(b, n, H, W, 3)``.  Returns ``{'mean', 'logvar', 'scores',
-    'one_hot', 'posterior'}`` with the JAX package's layouts (bins last).
+    ``(b, n, H, W, 3)`` (or, with ``folded=True``, ``(b, n*3, H, W)``).
+    ``.train()`` selects batch-statistics BatchNorm.  Returns ``{'mean',
+    'logvar', 'scores', 'one_hot', 'posterior'}`` with the JAX package's
+    layouts (bins last).
     """
 
     def __init__(self, ksize: int = 2, in_blocks: int = 3,
                  out_blocks: int = 8, chs: int = 70, views: int = 9,
                  cross: bool = False, uncert: bool = False,
                  discrete: bool = False, no_batchnorm: bool = False,
+                 batchnorm_momentum: float = 0.1,
                  disp_min: float = -3.5, disp_max: float = 3.5):
         super().__init__()
         self.ksize = ksize
@@ -94,7 +107,8 @@ class FeedForward(nn.Module):
 
         def stream_net():
             return nn.Sequential(*[
-                conv_block(views * 3 if b == 0 else chs, chs, ksize, use_bn)
+                conv_block(views * 3 if b == 0 else chs, chs, ksize, use_bn,
+                           bn_momentum=batchnorm_momentum)
                 for b in range(in_blocks)])
 
         self.in_net_hv = stream_net()
@@ -107,7 +121,8 @@ class FeedForward(nn.Module):
         elif discrete:
             out_chs = self.steps
         self.out_net = nn.Sequential(
-            *[conv_block(cat_chs, cat_chs, ksize, use_bn)
+            *[conv_block(cat_chs, cat_chs, ksize, use_bn,
+                         bn_momentum=batchnorm_momentum)
               for _ in range(out_blocks - 1)],
             conv_block(cat_chs, out_chs, ksize, use_bn, out_bn_relu=False))
 
@@ -126,27 +141,26 @@ class FeedForward(nn.Module):
                    views=cfg.model_views, cross=cfg.model_cross,
                    uncert=cfg.model_uncert, discrete=cfg.model_discrete,
                    no_batchnorm=cfg.model_no_batchnorm,
+                   batchnorm_momentum=cfg.model_batchnorm_momentum,
                    disp_min=cfg.val_disp_min, disp_max=cfg.val_disp_max)
 
     @property
     def steps(self) -> int:
         return (2 if self.cross else 4) * self.views * 3
 
-    def forward(self, h_views, v_views, i_views=None, d_views=None):
-        if self.training:
-            raise NotImplementedError(
-                'train-mode forward is not ported yet (ROADMAP.md, '
-                'Queue 1: the train step); call .eval() first')
+    def forward(self, h_views, v_views, i_views=None, d_views=None,
+                folded: bool = False):
+        fold = (lambda s: s) if folded else _fold
         # 't': the reference's transpose of the horizontal stream
-        x_h = _fold(h_views).transpose(2, 3)
+        x_h = fold(h_views).transpose(2, 3)
         f_h = self.in_net_hv(x_h).transpose(2, 3)
-        f_v = self.in_net_hv(_fold(v_views))
+        f_v = self.in_net_hv(fold(v_views))
         feats = [f_h, f_v]
         if not self.cross:
             # 'tf': transpose, then mirror the original-H axis (now last)
-            x_i = _fold(i_views).transpose(2, 3).flip(-1)
+            x_i = fold(i_views).transpose(2, 3).flip(-1)
             f_i = self.in_net_id(x_i).flip(-1).transpose(2, 3)
-            f_d = self.in_net_id(_fold(d_views))
+            f_d = self.in_net_id(fold(d_views))
             feats += [f_i, f_d]
 
         output = self.out_net(torch.cat(feats, dim=1)).float()
@@ -175,6 +189,34 @@ class FeedForward(nn.Module):
 
         return {'mean': mean, 'logvar': logvar, 'scores': scores,
                 'one_hot': one_hot, 'posterior': posterior}
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations,
+# rescaled so the truncated distribution has variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_default_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """The JAX package's initial weights, drawn from ``seed``, in place.
+
+    The distributions of ``mmlf_tpu`` (flax): lecun-normal conv kernels
+    (truncated normal, variance 1 / fan_in), zero conv biases, BN scale 1
+    and bias 0, running mean 0 and variance 1.  The draws come from a
+    ``torch.Generator`` seeded with ``seed``, so they are not JAX's bits.
+    """
+    gen = torch.Generator(device='cpu').manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            std = (1.0 / (w[0].numel())) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
+                                  generator=gen)
+            m.weight.copy_(w)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model
 
 
 @torch.no_grad()

@@ -1,0 +1,38 @@
+"""The rolling ``checkpoint.pt`` of a training run.
+
+One checkpoint per output directory, written at every validation interval,
+on SIGTERM and on completion, in the reference format
+(``utils/convert.save_checkpoint_pt``): ``model_state_dict``, the torch
+Adam ``optimizer_state_dict``, the full ``hyper_parameters`` dict,
+``epoch``, ``iteration`` and ``loss``.  The write is atomic (temporary file
++ rename), so a reader — the validate CLI, a resumed run — never sees half
+a file.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..utils.convert import read_checkpoint_pt, save_checkpoint_pt
+
+CKPT_PT = 'checkpoint.pt'
+
+
+def checkpoint_path(out_dir: str) -> str:
+    return os.path.join(out_dir, CKPT_PT)
+
+
+def has_checkpoint(out_dir: str) -> bool:
+    return os.path.exists(checkpoint_path(out_dir))
+
+
+def save_checkpoint(out_dir: str, model, optimizer, cfg, epoch: int,
+                    iteration: int, loss: float) -> None:
+    save_checkpoint_pt(checkpoint_path(out_dir), model.state_dict(), cfg,
+                       epoch=epoch, iteration=iteration, loss=float(loss),
+                       optimizer_state_dict=optimizer.state_dict())
+
+
+def load_checkpoint(out_dir: str) -> dict:
+    """The stored payload (tensors on the CPU)."""
+    return read_checkpoint_pt(checkpoint_path(out_dir))

@@ -1,0 +1,500 @@
+"""Training loop: the input path, forward, backward and Adam per step,
+schedules, in-train validation, the log and the rolling checkpoint.
+
+The counterpart of ``mmlf_tpu.train.loop`` (which reproduces the reference
+``mmlf/train/cli.py``):
+
+  * an unbounded step loop over a virtual-length-4096 dataset
+    (``cfg.train_steps`` bounds it);
+  * index-only batches from the device-resident scene pyramid
+    (``data/pipeline.DevicePipeline``); each microbatch is cut by kernel
+    K1 and augmented on the device (``gather_augment``);
+  * margin-11 train mask, strongest-mode GT, discrete targets and the
+    loss-padding masks (``prepare_targets``); head-dependent losses with
+    the logvar warm-up and anchor (``compute_loss``);
+  * gradient accumulation over ``train_accum`` microbatches: the chunk
+    losses and gradients are averaged uniformly, or weighted by their mask
+    counts under ``--train_accum_exact``; the BatchNorm running statistics
+    are those of chunk 0;
+  * ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` with the scheduled
+    LR (warm-start ramp, cooling decay) written into the param group before
+    each step: what ``optax.scale_by_adam`` with ``-lr·u`` computes;
+  * validation at ``i % val_interval == 0`` on the unshifted val scenes
+    (``validate/cli.make_scene_eval``), the artifact dump and the rolling
+    ``checkpoint.pt``;
+  * the ``log.csv`` columns of the reference, emitted through a 3-step lag
+    ring (0 with ``--train_nan_guard``), the first row's time the absolute
+    unix time (reference quirk);
+  * a checkpoint on SIGTERM and on completion; ``--train_resume`` restores
+    model, optimizer and iteration and reseeds the sampler from
+    ``SeedSequence([train_seed, iteration])``.
+
+Runs on the card by default (``device='cuda'``) in float32 with TF32 off.
+Not ported (each raises NotImplementedError, naming its ROADMAP.md entry):
+``--pallas_trunk``, ``--bf16``, ``--cache_bf16``, ``--remat``,
+``--mesh_data`` > 1, ``--model_unet``, ``--model_inn``,
+``--host_pipeline`` and the host pipeline that the JAX package switches to
+when the scene cache exceeds 8 GiB or the scene shapes differ.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import signal
+import sys
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.hci4d import HCI4D
+from ..data.pipeline import (DeviceBatch, DevicePipeline, PackedCache,
+                             chunk_slice, gather_augment, window_size)
+from ..losses import (improved_multi_uncertainty_l1, improved_uncertainty_l1,
+                      logvar_anchor, masked_cross_entropy, masked_l1,
+                      multi_masked_l1)
+from ..models.feed_forward import FeedForward, init_default_
+from ..ops.codecs import mpi_to_weights, reg_to_class
+from ..ops.masks import create_mask_margin
+from ..utils.device import resolve_device
+from ..validate.cli import make_scene_eval, scene_to_device
+from .checkpoint import has_checkpoint, load_checkpoint, save_checkpoint
+
+LOG_HEADER = (f'{"iter":>7}, loss_train,   loss_val,        mse, '
+              'badpix_007, time_elapsed')
+NOT_SUPPORTED_MSG = 'INNs are not supported anymore'
+# the JAX package trains from its host pipeline above this cache size
+DEVICE_CACHE_LIMIT = 8 << 30
+
+
+def _not_ported(flag: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f'{flag} is not ported to mmlf_tpu_torch yet (ROADMAP.md, {item}); '
+        f'use python -m mmlf_tpu.train.cli for it')
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise for every option of ``mmlf_tpu.train`` this port lacks."""
+    if cfg.model_invertible:
+        raise NotImplementedError(NOT_SUPPORTED_MSG)
+    for flag, on, item in (
+            ('--pallas_trunk', cfg.pallas_trunk,
+             'Queue 1 item 2: fused trunk with kernel K3'),
+            ('--bf16', cfg.bf16, 'Queue 1 item 11: training options'),
+            ('--cache_bf16', cfg.cache_bf16,
+             'Queue 1 item 11: training options'),
+            ('--remat', cfg.remat, 'Queue 1 item 11: training options'),
+            ('--host_pipeline', cfg.host_pipeline,
+             'Queue 1 item 11: training options'),
+            ('--mesh_data > 1', cfg.mesh_data > 1,
+             'Queue 1 item 4: data parallel'),
+            ('--model_unet', cfg.model_unet, 'Queue 1 item 5: U-Net'),
+            ('--model_inn', cfg.model_inn, 'Queue 1 item 7: the INN')):
+        if on:
+            raise _not_ported(flag, item)
+
+
+def lr_schedule(cfg: Config, step: int) -> float:
+    """Warm-start ramp (lr·i/1000 while i ≤ 1000) and cooling decay
+    (lr/10^(i/cool − 1) from i ≥ cool), in float32 as the JAX package
+    computes them."""
+    step = np.float32(step)
+    lr = np.float32(cfg.train_lr)
+    if cfg.train_warm_start and step <= 1000.0:
+        lr = np.float32(cfg.train_lr) * step / np.float32(1000.0)
+    if cfg.train_cooling > 0 and step >= cfg.train_cooling:
+        cool = np.float32(cfg.train_cooling)
+        lr = np.float32(cfg.train_lr) / np.float32(10.0) ** (
+            step / cool - np.float32(1.0))
+    return float(lr)
+
+
+def prepare_targets(cfg: Config, gt, mpi, mask):
+    """Targets and masks of one microbatch: strongest-mode GT, the margin-11
+    train mask, discrete targets and the loss-padding masks.  Returns
+    ``(gt, mpi, gt_classes, mask, mask_padding)``."""
+    if cfg.train_loss_strongest:
+        inds = torch.argmax(mpi[..., 3], dim=1)               # (b, P, P)
+        gt = torch.take_along_dim(mpi[..., 4], inds[:, None], dim=1)[:, 0]
+
+    margin = create_mask_margin(mask.shape[-2:], 11, mask.device)
+    mask = mask.to(torch.int32) * margin.to(torch.int32)
+
+    gt_classes = None
+    if cfg.model_discrete:
+        if cfg.train_loss_multimodal:
+            gt_classes = mpi_to_weights(mpi, cfg.val_disp_min,
+                                        cfg.val_disp_max, cfg.steps)
+        else:
+            gt_classes = reg_to_class(gt, cfg.val_disp_min,
+                                      cfg.val_disp_max, cfg.steps)
+
+    mask_padding = None
+    if cfg.train_loss_padding is not None:
+        pad = float(cfg.train_loss_padding)
+        if cfg.train_loss_multimodal:
+            keep = (torch.abs(mpi[..., 4]) < pad).float()
+            mpi = torch.cat([mpi[..., :3], mpi[..., 3:4] * keep[..., None],
+                             mpi[..., 4:]], dim=-1)
+        else:
+            mask_padding = (torch.abs(gt) < pad).to(torch.int32)
+    return gt, mpi, gt_classes, mask, mask_padding
+
+
+def compute_loss(cfg: Config, output: dict, gt, mpi, gt_classes, mask,
+                 mask_padding, step: Optional[int] = None):
+    """Head-dependent training loss.  ``--train_logvar_warmup N`` scales the
+    logvar the uncertainty losses see by ``min(step/N, 1)``;
+    ``--train_logvar_anchor`` adds the calibration anchor on the unscaled
+    logvar."""
+    anchor = 0.0
+    if cfg.model_uncert and cfg.train_logvar_anchor > 0:
+        anchor = cfg.train_logvar_anchor * logvar_anchor(
+            output, gt, mpi, mask, mask_padding,
+            multimodal=cfg.train_loss_multimodal)
+    if cfg.model_uncert and cfg.train_logvar_warmup > 0 and \
+            step is not None:
+        w = min(np.float32(step) / np.float32(cfg.train_logvar_warmup),
+                np.float32(1.0))
+        output = dict(output, logvar=output['logvar'] * float(w))
+    if cfg.model_uncert:
+        if cfg.train_loss_multimodal:
+            return anchor + improved_multi_uncertainty_l1(
+                output, mpi, mask, mask_padding)
+        return anchor + improved_uncertainty_l1(output, gt, mask,
+                                                mask_padding)
+    if cfg.model_discrete:
+        return masked_cross_entropy(output, gt_classes, mask)
+    if cfg.model_invertible:
+        raise NotImplementedError(NOT_SUPPORTED_MSG)
+    if cfg.train_loss_multimodal:
+        return multi_masked_l1(output, mpi, mask)
+    return masked_l1(output, gt, mask)
+
+
+def val_loss(cfg: Config, output: dict, gt, mpi, mask):
+    """Validation loss of the head."""
+    if cfg.model_uncert:
+        if cfg.train_loss_multimodal:
+            return improved_multi_uncertainty_l1(output, mpi, mask)
+        return improved_uncertainty_l1(output, gt, mask)
+    if cfg.train_loss_multimodal:
+        return multi_masked_l1(output, mpi, mask)
+    return masked_l1(output, gt, mask)
+
+
+def check_accum(cfg: Config) -> None:
+    """``--train_accum_exact`` weights every chunk by one mask count; raise
+    where a loss term normalizes by another count.  Beyond the JAX
+    package's guards, ``model_uncert`` with ``train_loss_multimodal``
+    raises even without an anchor: that loss divides by the chunk's mean
+    plane weight, a per-chunk normalizer."""
+    if not (cfg.train_accum_exact and cfg.train_accum > 1):
+        return
+    if cfg.train_loss_padding is not None:
+        raise ValueError(
+            '--train_accum_exact is incompatible with --train_loss_padding: '
+            'the in/out-of-range two-term loss has no single mask count')
+    if cfg.model_uncert and cfg.train_loss_multimodal:
+        raise ValueError(
+            '--train_accum_exact with the multimodal uncertainty loss is '
+            'unsupported: it normalizes by the chunk\'s mean plane weight '
+            '(and its anchor over mask∧in-range), not by the mask count')
+
+
+def microbatch_loss(cfg: Config, model: FeedForward, cache: PackedCache,
+                    chunk: DeviceBatch, step: int):
+    """Input path + forward + loss of one microbatch.  Returns ``(loss,
+    mask count)``; the caller runs the backward."""
+    # MPI windows are only cut when a loss reads them
+    with_mpi = bool(cfg.train_loss_multimodal or cfg.train_loss_strongest)
+    h, v, i, d, gt, mpi, mask = gather_augment(
+        cache, chunk, cfg.train_ps, window_size(cfg.train_ps),
+        with_mpi=with_mpi)
+    gt, mpi, gt_classes, mask, mask_padding = prepare_targets(cfg, gt, mpi,
+                                                              mask)
+    output = model(h, v, i, d, folded=True)
+    loss = compute_loss(cfg, output, gt, mpi, gt_classes, mask,
+                        mask_padding, step=step)
+    return loss, torch.sum(mask).float()
+
+
+def train_step(cfg: Config, model: FeedForward, optimizer, cache,
+               batch: DeviceBatch, step: int,
+               bn_train: bool = True) -> torch.Tensor:
+    """One optimizer step over ``batch`` (``train_accum`` microbatches).
+    ``bn_train=False`` is ``--train_eval_mode`` (running statistics, no
+    updates).  Returns the step's loss as a 0-d device tensor."""
+    check_accum(cfg)
+    accum = max(1, int(cfg.train_accum))
+    exact = bool(cfg.train_accum_exact) and accum > 1
+    n = len(batch.scene)
+    if n % accum:
+        raise ValueError(f'batch {n} does not split into {accum} '
+                         f'microbatches')
+    size = n // accum
+    model.train(bn_train)
+    optimizer.zero_grad(set_to_none=True)
+
+    total = n_total = 0.0
+    stats0 = None
+    for c in range(accum):
+        loss_c, n_c = microbatch_loss(cfg, model, cache,
+                                      chunk_slice(batch, c * size,
+                                                  (c + 1) * size), step)
+        w = n_c if exact else 1.0 / accum
+        (loss_c * w).backward()
+        total = total + w * loss_c.detach()
+        n_total = n_total + n_c
+        if c == 0 and accum > 1:
+            # the running statistics of chunk 0 are the step's
+            stats0 = [b.detach().clone() for b in model.buffers()]
+    if stats0 is not None:
+        with torch.no_grad():
+            for b, b0 in zip(model.buffers(), stats0):
+                b.copy_(b0)
+    if exact:
+        norm = torch.clamp(n_total, min=1.0)
+        total = total / norm
+        for p in model.parameters():
+            p.grad.div_(norm)
+
+    lr = lr_schedule(cfg, step)
+    for group in optimizer.param_groups:
+        group['lr'] = lr
+    optimizer.step()
+    return total
+
+
+def make_optimizer(model: FeedForward) -> torch.optim.Adam:
+    """Adam with torch's moments; the LR is written before each step."""
+    return torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+@dataclass
+class TrainState:
+    """What ``train`` returns: the model, its optimizer and the number of
+    completed steps."""
+    model: FeedForward
+    optimizer: torch.optim.Adam
+    step: int
+
+
+def train(cfg: Config, output_dir: str, progress: bool = True,
+          device='cuda', initial_state: Optional[dict] = None) -> TrainState:
+    """Run the training loop; returns the final state.
+
+    ``cfg.train_steps > 0`` bounds the loop; 0 runs forever like the
+    reference.  ``initial_state`` (a state dict of the port's FeedForward,
+    e.g. ``utils/convert.state_dict_from_jax`` of a JAX init) replaces the
+    seeded initialization of a fresh run.
+    """
+    if cfg.train_loss_strongest and cfg.train_loss_multimodal:
+        raise ValueError('--train_loss_strongest and '
+                         '--train_loss_multimodal exclude each other')
+    check_ported(cfg)
+    dev = resolve_device(device)
+
+    # a resumed run draws a fresh deterministic sample stream, seeded from
+    # (train_seed, iteration) through a SeedSequence
+    resume = None
+    resume_i = 0
+    if cfg.train_resume and has_checkpoint(output_dir):
+        resume = load_checkpoint(output_dir)
+        resume_i = int(resume['iteration'])
+    rng_seed = cfg.train_seed if resume_i == 0 else int(
+        np.random.SeedSequence([cfg.train_seed, resume_i])
+        .generate_state(1)[0])
+
+    trainset = HCI4D(cfg.train_trainset, cache=True, length=4096)
+    scene_bytes = sum(
+        sum(a.nbytes for a in (d[0], d[1], d[2], d[3], d[5], d[6], d[7]))
+        for d in trainset.data)
+    if scene_bytes >= DEVICE_CACHE_LIMIT:
+        raise _not_ported(f'a scene cache of {scene_bytes / 2**30:.1f} GiB '
+                          f'(the host pipeline)',
+                          'Queue 1 item 11: training options')
+    if len({d[5].shape for d in trainset.data}) != 1:
+        raise _not_ported('scenes of different shapes (the host pipeline)',
+                          'Queue 1 item 11: training options')
+    pipeline = DevicePipeline(trainset, cfg, seed=rng_seed, device=dev)
+    cache = pipeline.cache
+    # no transform: in-train validation feeds UNSHIFTED scenes even when
+    # train_shift != 0, like the reference and the JAX package
+    valset = HCI4D(cfg.train_valset, cache=True)
+
+    model = FeedForward.from_config(cfg)
+    if initial_state is not None:
+        model.load_state_dict(initial_state, strict=True)
+    else:
+        init_default_(model, cfg.train_seed)
+    model.to(dev)
+    optimizer = make_optimizer(model)
+
+    i = 0
+    if resume is not None:
+        print('Resume training...')
+        model.load_state_dict(resume['model_state_dict'], strict=True)
+        optimizer.load_state_dict(resume['optimizer_state_dict'])
+        i = resume_i
+        resume = None
+
+    scene_eval = make_scene_eval(model, cfg, cfg.to_dict(), cfg.val_ensamble,
+                                 cfg.val_disp_min, cfg.val_disp_max,
+                                 cfg.val_disp_step, cfg.val_loss_margin)
+
+    log = open(os.path.join(output_dir, 'log.csv'),
+               'a' if cfg.train_resume else 'w')
+    if progress:
+        print(LOG_HEADER)
+    if not cfg.train_resume:
+        print(LOG_HEADER, file=log)
+
+    loss_val_avg = mse_avg = bad_pix_avg = 0.0
+    # time_elapsed is measured between row emits (a row's loss readback
+    # waits for its step); the first row holds the absolute unix time, the
+    # reference's quirk
+    time_start = 0.0
+    profiler = None
+    # rows are emitted log_lag steps late so the card always has the next
+    # step queued; --train_nan_guard reads every loss at once
+    log_lag = 0 if cfg.train_nan_guard else 3
+    pending = collections.deque()   # (step, loss tensor, val snapshot)
+
+    def emit_row(row):
+        nonlocal time_start
+        j, loss_dev, lv, ms, bp = row
+        loss_f = float(loss_dev)    # waits for step j
+        now = time.time()
+        dt = now - time_start
+        time_start = now
+        line = (f'{j:>7}, {loss_f:.8f}, {lv:.8f}, '
+                f'{ms:.8f}, {bp:.8f}, {dt:.8f}')
+        if progress:
+            print(line)
+        print(line, file=log, flush=True)
+
+    def save_rolling_checkpoint():
+        """The rolling checkpoint at the loop's current (model, i): the
+        val-interval save runs before ``i += 1`` (resume re-runs step i,
+        the reference's replay), the SIGTERM and completion saves after it
+        (resume continues at the next step)."""
+        epoch = i // max(1, len(trainset) // cfg.train_bs)
+        save_checkpoint(output_dir, model, optimizer, cfg, epoch, i,
+                        loss_val_avg)
+
+    term_event = None
+    prev_term = None
+    if cfg.train_term_checkpoint and \
+            threading.current_thread() is threading.main_thread():
+        term_event = threading.Event()
+        prev_term = signal.signal(signal.SIGTERM,
+                                  lambda _s, _f: term_event.set())
+
+    try:
+        while True:
+            batch = pipeline.sample_batch(cfg.train_bs)
+            eval_mode = cfg.train_eval_mode and i >= cfg.train_eval_mode_start
+            if cfg.train_profile and i == 10:
+                profiler = _start_profiler(dev)
+            loss_train = train_step(cfg, model, optimizer, cache, batch, i,
+                                    bn_train=not eval_mode)
+            if profiler is not None and i >= 15:
+                _stop_profiler(profiler, output_dir, dev)
+                profiler = None
+
+            if cfg.train_nan_guard and not np.isfinite(float(loss_train)):
+                raise FloatingPointError(
+                    f'non-finite training loss at step {i}: '
+                    f'{float(loss_train)}')
+
+            if i % cfg.val_interval == 0:
+                # flush lagged rows first so validation never lands inside
+                # a training row's time_elapsed
+                while pending:
+                    emit_row(pending.popleft())
+                loss_val_avg, mse_avg, bad_pix_avg = _validate(
+                    cfg, model, valset, scene_eval, output_dir, dev)
+                save_rolling_checkpoint()
+                # keep the validation out of the next row's clock (but keep
+                # the first row's unix-time quirk)
+                if time_start:
+                    time_start = time.time()
+
+            pending.append((i, loss_train, loss_val_avg, mse_avg,
+                            bad_pix_avg))
+            while len(pending) > log_lag:
+                emit_row(pending.popleft())
+
+            i += 1
+            if term_event is not None and term_event.is_set():
+                while pending:
+                    emit_row(pending.popleft())
+                save_rolling_checkpoint()
+                print(f'SIGTERM: checkpoint written after step {i - 1} '
+                      f'({i} steps completed); exiting cleanly (continue '
+                      f'with --train_resume)', file=sys.stderr)
+                break
+            if cfg.train_steps and i >= cfg.train_steps:
+                # persist the completed state (stamp == train_steps)
+                save_rolling_checkpoint()
+                break
+        while pending:
+            emit_row(pending.popleft())
+    finally:
+        if profiler is not None:
+            _stop_profiler(profiler, output_dir, dev)
+        if term_event is not None:
+            signal.signal(signal.SIGTERM,
+                          prev_term if prev_term is not None
+                          else signal.SIG_DFL)
+        log.close()
+    return TrainState(model=model, optimizer=optimizer, step=i)
+
+
+@torch.no_grad()
+def _validate(cfg: Config, model: FeedForward, valset: HCI4D, scene_eval,
+              output_dir: str, dev):
+    """Full-scene eval of every val scene (running BN statistics); writes
+    the artifacts and returns the mean (loss_val, mse, badpix)."""
+    model.eval()
+    loss_val = mse = bad_pix = 0.0
+    for j in range(len(valset.scenes)):
+        sample = valset[j]
+        stacks, gt, mpi = scene_to_device(sample, dev)
+        output, metrics = scene_eval(*stacks, gt, mpi)
+        mask = create_mask_margin(gt.shape, cfg.val_loss_margin, dev)
+        loss_val += float(val_loss(cfg, output, gt, mpi, mask))
+        mse += float(metrics['mse'])
+        bad_pix += float(metrics['bad_pix'])
+        logvar = output.get('logvar')
+        valset.save_batch(output_dir, np.asarray(sample[8])[None],
+                          output['mean'].cpu().numpy(),
+                          None if logvar is None else logvar.cpu().numpy())
+    n = len(valset.scenes)
+    return loss_val / n, mse / n, bad_pix / n
+
+
+def _start_profiler(dev):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == 'cuda':
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.__enter__()
+    return profiler
+
+
+def _stop_profiler(profiler, output_dir: str, dev) -> None:
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+    profiler.__exit__(None, None, None)
+    path = os.path.join(output_dir, 'profile')
+    os.makedirs(path, exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(path, 'trace.json'))
+    print(f'profiler trace written to {path}')

@@ -11,11 +11,15 @@ the JAX package's variable tree onto the same keys:
   ``in_net_id``, ``out_net``            → likewise
 
 Conv kernels transpose HWIO → OIHW.  Input-channel order is the same
-(view-major, colour-minor) in both packages.
+(view-major, colour-minor) in both packages.  The leaves may be numpy or
+JAX arrays: a JAX train state's ``params`` and ``batch_stats`` convert as
+they are, and so does a gradient tree shaped like ``params`` (pass it as
+``params`` with the state's ``batch_stats``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -65,25 +69,47 @@ def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _to_cpu(obj):
+    """Tensors of a nested dict/list/tuple moved to the CPU."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
 def save_checkpoint_pt(path: str, state_dict: dict, cfg, epoch=None,
-                       iteration: int = 0, loss: float = 0.0) -> None:
-    """Write a reference-format ``checkpoint.pt``."""
+                       iteration: int = 0, loss: float = 0.0,
+                       optimizer_state_dict=None) -> None:
+    """Write a reference-format ``checkpoint.pt``, atomically (a reader
+    never sees half a file): model state, optimizer state (torch Adam's
+    ``state_dict()``, or None), the full hyper-parameter dict, epoch,
+    iteration and loss, all on the CPU."""
     cfg_dict = cfg if isinstance(cfg, dict) else cfg.to_dict()
-    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-    torch.save({'model_state_dict': sd, 'optimizer_state_dict': None,
+    tmp = f'{path}.tmp'
+    torch.save({'model_state_dict': _to_cpu(dict(state_dict)),
+                'optimizer_state_dict': _to_cpu(optimizer_state_dict),
                 'hyper_parameters': cfg_dict, 'epoch': epoch,
-                'iteration': iteration, 'loss': loss}, path)
+                'iteration': iteration, 'loss': loss}, tmp)
+    os.replace(tmp, path)
+
+
+def read_checkpoint_pt(path: str) -> dict:
+    """The whole payload of a reference-format ``checkpoint.pt``.  It holds
+    tensors and plain Python values only, so it is read with
+    ``weights_only=True``: unpickling runs no code from the file."""
+    return torch.load(path, map_location='cpu', weights_only=True)
 
 
 def load_checkpoint_pt(path: str) -> tuple:
     """Load a reference-format ``checkpoint.pt``.
 
     Returns ``(state_dict, hyper_parameters)``: the model state dict with
-    temporary ``*tmp*`` keys stripped, and the stored config dict.  The
-    payload holds tensors and plain Python values only, so it is read with
-    ``weights_only=True``: unpickling runs no code from the file.
+    temporary ``*tmp*`` keys stripped, and the stored config dict.
     """
-    state = torch.load(path, map_location='cpu', weights_only=True)
+    state = read_checkpoint_pt(path)
     sd = {k: v for k, v in state['model_state_dict'].items()
           if 'tmp' not in k}
     return sd, dict(state['hyper_parameters'])

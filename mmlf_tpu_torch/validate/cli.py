@@ -42,6 +42,7 @@ from ..models.feed_forward import FeedForward
 from ..ops.codecs import mpi_to_weights
 from ..ops.masks import create_mask_margin
 from ..utils.convert import load_checkpoint_pt
+from ..utils.device import resolve_device
 from ..utils.fold_bn import fold_batchnorm
 from . import calibrate
 from . import posteriors as P
@@ -54,20 +55,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f'{what} is not ported to mmlf_tpu_torch yet (ROADMAP.md, {item}); '
         f'use python -m mmlf_tpu.validate.cli for it')
-
-
-def resolve_device(device) -> torch.device:
-    """The run's device.  CUDA must be present when asked for (no silent
-    CPU run), and fp32 convolutions and matmuls then run without TF32."""
-    dev = torch.device(device)
-    if dev.type == 'cuda':
-        if not torch.cuda.is_available():
-            raise RuntimeError(f'device {device!r} requested but CUDA is '
-                               f'not available; pass device="cpu" to run '
-                               f'on the CPU')
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return dev
 
 
 def load_model_state(output_dir: str):
@@ -149,7 +136,7 @@ def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
     return scene_eval
 
 
-def _to_device(sample, dev):
+def scene_to_device(sample, dev):
     """Batch-1 device tensors of a sample's four stacks, gt and padded
     MPI."""
     h, v, i, d, _, gt, mpi = sample[:7]
@@ -213,7 +200,7 @@ def run_validation(output_dir, dataset, model_discrete=False,
             for j in range(min(val_cal_scenes, len(calset.scenes))):
                 print(f'Calibrating on scene {j} of {val_recalibrate}...')
                 sample = calset[j]
-                stacks, cgt, cmpi = _to_device(sample, dev)
+                stacks, cgt, cmpi = scene_to_device(sample, dev)
                 out_c, _ = scene_eval(*stacks, cgt, cmpi)
                 m = create_mask_margin(sample[5].shape, val_loss_margin)
                 cal_stats.append((out_c['means'][:, 0].cpu().numpy(),
@@ -238,7 +225,7 @@ def run_validation(output_dir, dataset, model_discrete=False,
 
         sample = valset[i]
         gt, index = sample[5], sample[8]
-        stacks, gt_t, mpi_t = _to_device(sample, dev)
+        stacks, gt_t, mpi_t = scene_to_device(sample, dev)
         output, metrics = scene_eval(*stacks, gt_t, mpi_t, member_offsets)
         metrics = {k: float(v) for k, v in metrics.items()}
 

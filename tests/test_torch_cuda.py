@@ -15,6 +15,7 @@ from mmlf_tpu_torch.config import Config
 from mmlf_tpu_torch.models.ensemble import ensemble_forward
 from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
 from mmlf_tpu_torch.ops.kernels import posterior as K
+from mmlf_tpu_torch.ops.kernels import window_gather as W
 
 # the kernel's exponential is ex2.approx on a pre-scaled argument (a few
 # ulp), against expf and a division in the plain version
@@ -78,3 +79,86 @@ def test_ensemble_on_card_matches_cpu(cuda):
     assert agree.float().mean() >= 0.999
     torch.testing.assert_close(got['posterior'].cpu(), want['posterior'],
                                rtol=1e-3, atol=1e-4)
+
+
+def _levels(dev, n_scenes=4, size=512, n_levels=4, seed=0):
+    """Random packed pyramid levels at the recipe's layout (CI 128)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    img, aux, mpi = [], [], []
+    for f in range(1, n_levels + 1):
+        hf = (size + f - 1) // f
+        img.append(torch.rand((n_scenes, hf, hf, 128), generator=gen,
+                              device=dev))
+        aux.append(torch.rand((n_scenes, hf, hf * W.AUX_CH), generator=gen,
+                              device=dev))
+        mpi.append(torch.rand((n_scenes, hf, hf * W.MPI_CH), generator=gen,
+                              device=dev))
+    return img, aux, mpi
+
+
+@pytest.mark.parametrize('with_mpi', [False, True])
+def test_window_gather_kernel_matches_plain(cuda, with_mpi):
+    """K1 at the recipe shape (64 windows of 128², all four levels) is a
+    copy: bit-identical to the plain version."""
+    img, aux, mpi = _levels(cuda)
+    rng = np.random.default_rng(1)
+    b, win = 64, 128
+    level = np.arange(b) % 4
+    hf = np.array([t.shape[1] for t in img])[level]
+    wy = rng.integers(0, hf - win + 1) // 8 * 8
+    wx = rng.integers(0, hf - win + 1) // 16 * 16
+    scene = rng.integers(0, 4, b)
+    before = W.window_gather.launches
+    got = W.window_gather(img, aux, mpi, scene, level, wy, wx, win,
+                          with_mpi=with_mpi)
+    torch.cuda.synchronize()
+    assert W.window_gather.launches == before + 1
+    index = np.stack([scene, level, wy, wx]).astype(np.int32)
+    want = W.plain_window_gather(img, aux, mpi, index, win, with_mpi)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert torch.equal(g, w)
+
+
+def test_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One port train step (UPR, accum 2, augmentation on) on the card
+    against the same step on the CPU from the same weights and batch."""
+    from mmlf_tpu_torch.data.hci4d import HCI4D
+    from mmlf_tpu_torch.data.pipeline import DevicePipeline
+    from mmlf_tpu_torch.data.synth import generate_dataset
+    from mmlf_tpu_torch.models.feed_forward import init_default_
+    from mmlf_tpu_torch.train import loop
+
+    root = str(tmp_path / 'data')
+    generate_dataset(root, scenes=1, size=128, seed=0)
+    cfg = Config(train_trainset=root, train_bs=8, train_ps=32,
+                 train_lr=1e-3, train_max_downscale=2, train_accum=2,
+                 model_chs=8, model_in_blocks=1, model_out_blocks=2,
+                 model_uncert=True).finalize()
+    results = []
+    for dev in ('cpu', cuda):
+        pipe = DevicePipeline(HCI4D(root, cache=True), cfg, seed=3,
+                              device=dev)
+        model = init_default_(FeedForward.from_config(cfg), 0).to(dev)
+        opt = loop.make_optimizer(model)
+        before = W.window_gather.launches
+        loss = loop.train_step(cfg, model, opt, pipe.cache,
+                               pipe.sample_batch(8), 5)
+        launches = W.window_gather.launches - before
+        results.append((float(loss), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()}, launches))
+    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = results
+    assert (n_cpu, n_gpu) == (0, 2)
+    # cuDNN sums the convolutions in another order (TF32 off); gradients
+    # are compared, not Adam's ~sign(g) first update
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    # (a conv bias feeding a train-mode BN has a zero gradient: rounding
+    # noise on both sides, held to the model-wide scale)
+    g_max = max(float(g.abs().max()) for g in g_cpu.values())
+    for name in g_cpu:
+        scale = float(g_cpu[name].abs().max())
+        torch.testing.assert_close(g_gpu[name], g_cpu[name], rtol=1e-3,
+                                   atol=1e-4 * scale + 1e-5 * g_max,
+                                   msg=name)

@@ -66,12 +66,22 @@ def test_entry_points_raise_without_cuda(tmp_path):
         pytest.skip('this machine has CUDA; the test is for one without')
     from click.testing import CliRunner
 
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.train import cli as train_cli
+    from mmlf_tpu_torch.train.loop import train
     from mmlf_tpu_torch.validate.cli import main, run_validation
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         run_validation(str(tmp_path), str(tmp_path), device='cuda')
     res = CliRunner().invoke(main, [str(tmp_path), str(tmp_path),
                                     '--val_ensamble'])
     assert isinstance(res.exception, RuntimeError), res.output
+
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        train(Config().finalize(), str(tmp_path))
+    res = CliRunner().invoke(train_cli.main, [str(tmp_path),
+                                              '--model_uncert'])
+    assert isinstance(res.exception, RuntimeError), res.output
+    assert 'CUDA is not available' in str(res.exception)
 
 
 def test_kernel_wrapper_takes_plain_version_only_on_cpu():
@@ -89,3 +99,37 @@ def test_kernel_wrapper_takes_plain_version_only_on_cpu():
     with pytest.raises(TypeError, match='float32'):
         K.laplace_mixture_posterior(m.double(), torch.ones(2, 3),
                                     torch.zeros(4))
+
+
+def test_window_gather_takes_plain_version_only_on_cpu():
+    from mmlf_tpu_torch.ops.kernels import window_gather as K
+
+    before = K.window_gather.launches
+    levels = [torch.arange(2 * 8 * 8 * 4, dtype=torch.float32).reshape(
+        2, 8, 8, 4)]
+    aux = [torch.zeros(2, 8, 8 * K.AUX_CH)]
+    mpi = [torch.zeros(2, 8, 8 * K.MPI_CH)]
+    idx = [1], [0], [2], [3]
+    img, a, m = K.window_gather(levels, aux, mpi, *idx, win=4)
+    assert img.shape == (1, 4, 4, 4) and m.shape == (1, 4, 4 * K.MPI_CH)
+    assert torch.equal(img[0], levels[0][1, 2:6, 3:7])
+    assert K.window_gather.launches == before
+    assert K.window_gather(levels, aux, mpi, *idx, win=4,
+                           with_mpi=False)[2] is None
+    meta = [t.to('meta') for t in levels]
+    with pytest.raises(ValueError, match='device'):
+        K.window_gather(meta, [t.to('meta') for t in aux],
+                        [t.to('meta') for t in mpi], *idx, win=4)
+
+
+def test_train_cli_has_the_jax_flags():
+    """Every flag of mmlf_tpu.train.cli but --jax_cache, with its default,
+    plus --device (default cuda)."""
+    jax_cli = os.path.join(REPO, 'mmlf_tpu', 'train', 'cli.py')
+    with open(jax_cli) as fh:
+        names = set(re.findall(r"@click\.option\('--([a-z0-9_]+)", fh.read()))
+    from mmlf_tpu_torch.train.cli import main
+    flags = {p.name: p.default for p in main.params}
+    assert names - {'jax_cache'} <= set(flags)
+    assert 'jax_cache' not in flags and flags['device'] == 'cuda'
+    assert flags['train_accum'] == 1 and flags['val_interval'] == 100
