@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, as below
+    python3 chip_smoke.py k3       # card, build and the K3 phase only
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -22,25 +23,37 @@ Phases, in order; any failure exits non-zero and prints no result:
              the MPI field), its time, the plain version's, one
              advanced-indexing call's, and the bound; the augmentation's
              and the host sampler's time;
-6. main    — ESE validation of the train phase's checkpoint through the
+6. train_trunk — the same recipe with ``--pallas_trunk`` (every
+             train-mode conv block through kernel K3) for TRUNK_STEPS
+             steps; checks the log rows, the checkpoint and that K3
+             forward and backward each launched 20 × accum × steps times
+             (and K1 accum × steps); prints the same numbers as train;
+7. K3      — the fused double-conv block forward and backward against
+             their plain versions at the recipe's block shapes (B 64, 96²:
+             27→70, 70→70, 280→280, 280→2), their times, the plain
+             versions', the bound and, as context, the port's plain
+             ConvBlock (cuDNN) forward and backward;
+8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
              K2 against its plain version on the run's own members;
-7. K2      — the mixture posterior against its plain version at the ESE
+9. K2      — the mixture posterior against its plain version at the ESE
              shape, its time, the plain version's and the bound;
-8. member / breakdown — device time of one ESE member and host times of
+10. member / breakdown — device time of one ESE member and host times of
              the validate path's other pieces;
-9. the kernels line (JSON), the card line, and the last line
+11. the kernels line (JSON), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-The weights start random (seeded) and train 4 steps, so the accuracy
+The weights start random (seeded) and train a few steps, so the accuracy
 numbers printed mean nothing; the run shows that the port builds, agrees
-with its plain versions and runs both halves of the main path on the card.
+with its plain versions and runs the main path's train step (plain and
+``--pallas_trunk``) and its validation on the card.
 Imports nothing of JAX or of mmlf_tpu.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -54,6 +67,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE = 512
 TRAIN_SCENES = 4
 TRAIN_STEPS = 4
+TRUNK_STEPS = 4
+# the recipe's trunk blocks per microbatch: 4 streams x 3 blocks + 8 out_net
+TRUNK_BLOCKS = 4 * 3 + 8
 # the README UPR recipe (bs 512 as 8 microbatches of 64)
 RECIPE = ['--train_shift', '2.5', '--train_lr', '1e-3', '--train_bs', '512',
           '--train_ps', '96', '--train_warm_start', '--model_uncert',
@@ -64,6 +80,15 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 SFU_PER_SM_CLK = 16          # MUFU.EX2 results per SM per clock (Hopper)
 TOL = dict(rtol=1e-4, atol=1e-6)   # ex2.approx on a pre-scaled argument
+# K3 against its plain version (cuDNN, TF32 off) on dyadic inputs, where the
+# ReLU masks agree bit for bit: fp32 sums in another order (K = 4 Cin terms
+# per output, up to 590k pixels per BN sum and weight gradient), each
+# output within this fraction of its largest magnitude
+K3_REL = 1e-4
+# the recipe's K3 block shapes (Cin, Cout, relu_in, affine_in) and their
+# launches per microbatch
+K3_BLOCKS = [((27, 70, False, False), 4), ((70, 70, True, True), 8),
+             ((280, 280, True, True), 7), ((280, 2, True, True), 1)]
 
 
 def log(*args):
@@ -111,6 +136,24 @@ def conv_flop_per_pixel() -> int:
     280→280 convs (the 280→2 head is left out)."""
     return 4 * (2 * 4 * 27 * 70 + 5 * 2 * 4 * 70 * 70) + \
         7 * 2 * 2 * 4 * 280 * 280
+
+
+def counters(M) -> dict:
+    """Every kernel wrapper of the port, by name (each counts its
+    launches in ``.launches``)."""
+    return {'window_gather': M.W.window_gather,
+            'fused_double_conv_fwd': M.C.fused_double_conv_fwd,
+            'fused_double_conv_bwd': M.C.fused_double_conv_bwd,
+            'laplace_mixture_posterior': M.K.laplace_mixture_posterior}
+
+
+def reset_launches(M) -> None:
+    for fn in counters(M).values():
+        fn.launches = 0
+
+
+def read_launches(M) -> dict:
+    return {name: fn.launches for name, fn in counters(M).items()}
 
 
 def check_close(got, want, what: str) -> float:
@@ -216,9 +259,11 @@ def check_gather(W, cache, batch, win, what: str) -> float:
     return 0.0
 
 
-def phase_train(W, K, train: str, val: str, run: str) -> dict:
-    """The README UPR recipe through the train CLI, then K1 against its
-    plain version on the run's own last batch."""
+def phase_train(M, train: str, val: str, run: str, steps: int,
+                trunk: bool = False) -> dict:
+    """The README UPR recipe through the train CLI (with ``--pallas_trunk``
+    when ``trunk``), then K1 against its plain version on the run's own
+    last batch.  ``M`` holds the kernel modules."""
     import numpy as np
     import torch
     from mmlf_tpu_torch.train import cli, loop
@@ -235,58 +280,66 @@ def phase_train(W, K, train: str, val: str, run: str) -> dict:
     loop.DevicePipeline = Recording
     os.makedirs(run)
     args = [run, '--train_trainset', train, '--train_valset', val,
-            *RECIPE, '--train_steps', str(TRAIN_STEPS), '--train_nan_guard']
+            *RECIPE, '--train_steps', str(steps), '--train_nan_guard']
+    if trunk:
+        args.append('--pallas_trunk')
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    W.window_gather.launches = K.laplace_mixture_posterior.launches = 0
+    reset_launches(M)
     t = time.time()
     state = cli.main(args, standalone_mode=False)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = W.window_gather.launches
+    launches = read_launches(M)
     peak = torch.cuda.max_memory_allocated()
     loop.DevicePipeline = Recording.__bases__[0]
 
     accum = int(RECIPE[RECIPE.index('--train_accum') + 1])
-    if launches != TRAIN_STEPS * accum:
-        raise AssertionError(f'K1 launched {launches} times in '
-                             f'{TRAIN_STEPS} steps x {accum} microbatches')
-    if state.step != TRAIN_STEPS:
+    k3 = TRUNK_BLOCKS * accum * steps if trunk else 0
+    want = {'window_gather': steps * accum, 'fused_double_conv_fwd': k3,
+            'fused_double_conv_bwd': k3, 'laplace_mixture_posterior': 0}
+    if launches != want:
+        raise AssertionError(f'launches {launches} in {steps} steps x '
+                             f'{accum} microbatches, expected {want}')
+    if state.step != steps:
         raise AssertionError(f'train stopped at step {state.step}')
     rows = [[float(v) for v in line.split(',')] for line in
             open(os.path.join(run, 'log.csv')).read().splitlines()[1:]]
-    if [int(r[0]) for r in rows] != list(range(TRAIN_STEPS)) or \
+    if [int(r[0]) for r in rows] != list(range(steps)) or \
             not np.isfinite(np.array(rows)).all():
         raise AssertionError(f'log.csv rows {rows}')
     ckpt = torch.load(os.path.join(run, 'checkpoint.pt'),
                       map_location='cpu', weights_only=True)
-    if ckpt['iteration'] != TRAIN_STEPS or \
-            ckpt['optimizer_state_dict'] is None:
+    if ckpt['iteration'] != steps or \
+            ckpt['optimizer_state_dict'] is None or \
+            ckpt['hyper_parameters']['pallas_trunk'] != trunk:
         raise AssertionError('checkpoint.pt does not hold the final step')
+    del state
 
     # K1 on the run's own last batch, microbatch by microbatch
     pipe, batch = seen['pipeline'], seen['batch']
     from mmlf_tpu_torch.data.pipeline import chunk_slice
     size = len(batch.scene) // accum
     for c in range(accum):
-        check_gather(W, pipe.cache, chunk_slice(batch, c * size,
-                                                (c + 1) * size),
+        check_gather(M.W, pipe.cache, chunk_slice(batch, c * size,
+                                                  (c + 1) * size),
                      pipe.win, f'train batch chunk {c}')
 
+    name = 'train_trunk' if trunk else 'train'
     bs = int(RECIPE[RECIPE.index('--train_bs') + 1])
     ps = int(RECIPE[RECIPE.index('--train_ps') + 1])
     steady = [r[5] for r in rows[1:]]
     s_step = sum(steady) / len(steady)
     flop = 3 * conv_flop_per_pixel() * ps * ps * bs
-    log(f'train: {TRAIN_STEPS} steps of bs {bs} ({accum} x {size}), ps {ps}, '
+    log(f'{name}: {steps} steps of bs {bs} ({accum} x {size}), ps {ps}, '
         f'in {wall:.1f} s CLI wall; steady steps {steady} s, '
         f'{s_step:.3f} s/step, {bs / s_step:.1f} patches/s, '
         f'{flop / s_step / 1e12:.1f} TFLOP/s conv fwd+bwd fp32 '
-        f'({flop / 1e12:.1f} TFLOP/step), peak device memory '
-        f'{peak / 2**30:.2f} GiB, K1 launches {launches}, losses '
+        f'({flop / 1e12:.1f} TFLOP/step, 3 x forward), peak device memory '
+        f'{peak / 2**30:.2f} GiB, launches {launches}, losses '
         f'{[r[1] for r in rows]}')
     return {'launches': launches, 'pipeline': pipe, 's_step': s_step,
-            'size': size}
+            'size': size, 'peak': peak}
 
 
 def phase_window_gather(W, pipe, size: int) -> dict:
@@ -368,28 +421,181 @@ def phase_window_gather(W, pipe, size: int) -> dict:
             'sampler_s': sampler_s}
 
 
-def phase_main(K, run: str, val: str) -> dict:
+def k3_inputs(b, h, w, cin, cout, seed):
+    """Seeded dyadic inputs of one K3 block on the card (few-bit multiples
+    of powers of two: x·si + ti and y1 are exact in fp32 in any order, so
+    the ReLU masks of kernel and plain version agree bit for bit)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(lo, hi, shape, scale):
+        a = rng.integers(lo, hi + 1, shape).astype(np.float32) * scale
+        return torch.from_numpy(a).cuda()
+
+    x = t(-4, 4, (b, cin, h, w), 1 / 4)
+    si, ti = t(2, 6, cin, 1 / 4), t(-4, 4, cin, 1 / 8)
+    w1, b1 = t(-3, 3, (cout, cin, 2, 2), 1 / 16), t(-2, 2, cout, 1 / 16)
+    w2, b2 = t(-3, 3, (cout, cout, 2, 2), 1 / 16), t(-2, 2, cout, 1 / 16)
+    dy2 = t(-4, 4, (b, cout, h, w), 1 / 4)
+    dps, dpss = t(-2, 2, cout, 1 / 16), t(-2, 2, cout, 1 / 256)
+    return x, si, ti, w1, b1, w2, b2, dy2, dps, dpss
+
+
+def k3_bound(b, h, w, cin, cout):
+    """Least times of K3 on the card, ``((fwd ms, by), (bwd ms, by))``.
+    Operations: the forward's two k=2 convs (to (H+1)x(W+1) and HxW); the
+    backward's five (y1 again, two dgrads, two wgrads), 2 FLOP per
+    multiply-add at the fp32 peak.  Bytes: each input read once, each
+    output written once (fwd: x, y2; bwd: x, y2, dy2, dx; plus weights)."""
+    p1, p0 = b * (h + 1) * (w + 1), b * h * w
+    c1, c2 = 2 * 4 * cin * cout, 2 * 4 * cout * cout
+    ops_f = p1 * c1 + p0 * c2
+    ops_b = 2 * p1 * c1 + p1 * c2 + p0 * c1 + p0 * c2
+    act_in, act_out = b * cin * h * w, b * cout * h * w
+    params = 4 * cin * cout + 4 * cout * cout + 2 * cin + 2 * cout
+    by_f = 4 * (act_in + act_out + params + 2 * cout)
+    by_b = 4 * (2 * act_in + 2 * act_out + 2 * params + 2 * cout)
+
+    def bound(ops, n_bytes):
+        t_ops, t_bytes = ops / PEAK_FP32, n_bytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                'operations' if t_ops >= t_bytes else 'bytes')
+    return bound(ops_f, by_f), bound(ops_b, by_b)
+
+
+def k3_breakdown(C, fa, ba) -> None:
+    """Device time by CUDA kernel of one K3 forward and one backward
+    (torch.profiler), to show where a block's time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for name, fn, args in (('fwd', C.fused_double_conv_fwd, fa),
+                           ('bwd', C.fused_double_conv_bwd, ba)):
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_time_total > 0), key=lambda r: -r[1])
+        if not rows:
+            log(f'k3 breakdown {name}: the profiler saw no device time')
+            continue
+        log(f'k3 breakdown {name} (280->280, profiler device ms): '
+            + '; '.join(f'{k[:60]} x{n} {ms:.3f}' for k, ms, n in rows[:8]))
+
+
+def phase_conv_block(M) -> dict:
+    """K3 forward and backward against their plain versions at the recipe's
+    block shapes (B 64, 96²), with the times of kernel, plain version and
+    the port's plain ConvBlock (cuDNN fwd and autograd bwd); the totals
+    over one microbatch's 20 blocks go into the kernels line."""
+    import torch
+    from mmlf_tpu_torch.models.feed_forward import conv_block
+
+    C = M.C
+    b, h, w = 64, 96, 96
+    out = {'fwd': dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, n=0),
+           'bwd': dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, n=0)}
+    by = {kind: {'operations': 0.0, 'bytes': 0.0} for kind in out}
+    for (cin, cout, relu_in, affine_in), n in K3_BLOCKS:
+        x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = k3_inputs(
+            b, h, w, cin, cout, seed=cin + cout)
+        fa = (x, si, ti, w1, b1, w2, b2, relu_in, affine_in)
+        got = C.fused_double_conv_fwd(*fa)
+        want = C.plain_double_conv_fwd(*fa)
+        y2 = want[0]
+        ba = (x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, relu_in, affine_in)
+        got_b = C.fused_double_conv_bwd(*ba)
+        want_b = C.plain_double_conv_bwd(*ba)
+        torch.cuda.synchronize()
+        errs = {}
+        for kind, g_, w_, names in (
+                ('fwd', got, want, ('y2', 'ps', 'pss')),
+                ('bwd', got_b, want_b, ('dx', 'dsi', 'dti', 'dw1', 'db1',
+                                        'dw2', 'db2'))):
+            for g, wt, name in zip(g_, w_, names):
+                err = float((g - wt).abs().max())
+                scale = float(wt.abs().max())
+                if err > K3_REL * scale:
+                    raise AssertionError(
+                        f'K3 {kind} {cin}->{cout} {name}: max abs err '
+                        f'{err:.3e} > {K3_REL} x max |plain| {scale:.3e}')
+                errs[name] = err / scale if scale else 0.0
+                out[kind]['err'] = max(out[kind]['err'], err)
+        del got, got_b, want_b
+
+        ms_f = cuda_ms(lambda: C.fused_double_conv_fwd(*fa), reps=5)
+        ms_b = cuda_ms(lambda: C.fused_double_conv_bwd(*ba), reps=5)
+        plain_f = cuda_ms(lambda: C.plain_double_conv_fwd(*fa), reps=5)
+        plain_b = cuda_ms(lambda: C.plain_double_conv_bwd(*ba), reps=5)
+        (bound_f, by_f), (bound_b, by_b) = k3_bound(b, h, w, cin, cout)
+
+        # context: the port's plain ConvBlock (conv, relu, conv, BN, relu)
+        # through cuDNN, forward and autograd backward
+        blk = conv_block(cin, cout, 2, True).cuda().train()
+        xb = x.clone().requires_grad_()
+        cudnn_f = cuda_ms(lambda: blk(xb), reps=5)
+
+        def fwd_bwd():
+            y = blk(xb)
+            y.backward(dy2)
+        cudnn_fb = cuda_ms(fwd_bwd, reps=5)
+        del blk, xb
+        if (cin, cout) == (280, 280):
+            k3_breakdown(C, fa, ba)
+        log(f'kernel fused_double_conv {cin}->{cout} B={b} {h}x{w} '
+            f'(relu_in {relu_in}, affine_in {affine_in}): fwd {ms_f:.3f} ms '
+            f'(bound {bound_f:.3f} ms, {by_f}; plain {plain_f:.3f} ms), '
+            f'bwd {ms_b:.3f} ms (bound {bound_b:.3f} ms, {by_b}; plain '
+            f'{plain_b:.3f} ms); cuDNN ConvBlock fwd {cudnn_f:.3f} ms, '
+            f'bwd {cudnn_fb - cudnn_f:.3f} ms; max err / max |plain| '
+            + ', '.join(f'{k} {v:.1e}' for k, v in errs.items()))
+        for kind, ms, plain, bound, bound_by in (
+                ('fwd', ms_f, plain_f, bound_f, by_f),
+                ('bwd', ms_b, plain_b, bound_b, by_b)):
+            out[kind]['ms'] += n * ms
+            out[kind]['plain_ms'] += n * plain
+            out[kind]['bound_ms'] += n * bound
+            out[kind]['n'] += n
+            by[kind][bound_by] += n * bound
+        del x, si, ti, w1, b1, w2, b2, dy2, dps, dpss, fa, ba, y2, want
+        torch.cuda.empty_cache()
+    for kind in ('fwd', 'bwd'):
+        o = out[kind]
+        o['bound_by'] = max(by[kind], key=by[kind].get)
+        log(f'kernel fused_double_conv_{kind}: one microbatch\'s {o["n"]} '
+            f'blocks {o["ms"]:.2f} ms, plain {o["plain_ms"]:.2f} ms, bound '
+            f'{o["bound_ms"]:.2f} ms (mostly {o["bound_by"]})')
+    return out
+
+
+def phase_main(M, run: str, val: str) -> dict:
     """ESE validate of the train phase's checkpoint through the CLI."""
     import numpy as np
     import torch
     from mmlf_tpu_torch.validate import cli
 
+    K = M.K
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.laplace_mixture_posterior.launches = 0
+    reset_launches(M)
     t = time.time()
     result = cli.main([run, val, '--val_ensamble'], standalone_mode=False)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = K.laplace_mixture_posterior.launches
+    counts = read_launches(M)
+    launches = counts['laplace_mixture_posterior']
     peak = torch.cuda.max_memory_allocated()
 
     for key in ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll'):
         if not math.isfinite(result[key]):
             raise AssertionError(f'metric {key} = {result[key]}')
-    if launches != 1:
-        raise AssertionError(f'mixture posterior launched {launches} '
-                             f'times for 1 scene')
+    if counts != {'window_gather': 0, 'fused_double_conv_fwd': 0,
+                  'fused_double_conv_bwd': 0,
+                  'laplace_mixture_posterior': 1}:
+        raise AssertionError(f'ESE validate of 1 scene launched {counts}')
     scene = os.path.join(run, 'scenes', 'scene_00')
     for f in ('result.pfm', 'result.png', 'uncert.pfm', 'gt.pfm',
               'center.png', 'diff.png', 'view_h_0.png', 'gmm.npy',
@@ -499,17 +705,25 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
+        from types import SimpleNamespace
         from mmlf_tpu_torch.ops.kernels import build
+        from mmlf_tpu_torch.ops.kernels import conv_block as C
         from mmlf_tpu_torch.ops.kernels import posterior as K
         from mmlf_tpu_torch.ops.kernels import window_gather as W
     except ImportError as e:
         print(f'chip_smoke: the port is not beside this script ({e})',
               file=sys.stderr)
         return 2
+    M = SimpleNamespace(C=C, K=K, W=W)
+    # fp32 without TF32 for every cuDNN call here, as the port's entry
+    # points set it
+    from mmlf_tpu_torch.utils.device import resolve_device
+    resolve_device('cuda')
 
     card = smi('name,power.limit')
     log(f'card: {card}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, {torch.cuda.device_count()} device(s)')
+    only_k3 = sys.argv[1:] == ['k3']
 
     t = time.time()
     libs = build.build_all()
@@ -523,23 +737,45 @@ def main() -> int:
         log(f'build: {name}: {len(regs)} kernel instantiation(s), '
             f'{min(regs)}-{max(regs)} registers, spill stores up to '
             f'{max(spills)} bytes')
+    if only_k3:
+        phase_conv_block(M)
+        return 0
 
     work = os.path.join(REPO, 'build', 'chip_smoke')
     shutil.rmtree(work, ignore_errors=True)
     train, val = phase_data(work)
     run = os.path.join(work, 'run')
-    train_run = phase_train(W, K, train, val, run)
+    train_run = phase_train(M, train, val, run, TRAIN_STEPS)
     gather = phase_window_gather(W, train_run['pipeline'], train_run['size'])
-    s_step, k1_launches = train_run['s_step'], train_run['launches']
+    s_step, k1_launches = train_run['s_step'], \
+        train_run['launches']['window_gather']
     per_step = k1_launches / TRAIN_STEPS
     log(f'train step shares: K1 {per_step * gather["ms"] / 1e3 / s_step:.2%}'
         f', gather + augmentation '
         f'{per_step * gather["aug_ms"] / 1e3 / s_step:.2%}, host sampler '
         f'{gather["sampler_s"] / s_step:.2%} of {s_step:.3f} s/step')
     del train_run
+    gc.collect()            # the run's pipeline sits in a reference cycle
     torch.cuda.empty_cache()
 
-    main_run = phase_main(K, run, val)
+    trunk_run = phase_train(M, train, val, os.path.join(work, 'run_trunk'),
+                            TRUNK_STEPS, trunk=True)
+    k3_launches = trunk_run['launches']['fused_double_conv_fwd']
+    trunk_launches_bwd = trunk_run['launches']['fused_double_conv_bwd']
+    trunk_s, trunk_peak = trunk_run['s_step'], trunk_run['peak']
+    del trunk_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3 = phase_conv_block(M)
+    accum = int(RECIPE[RECIPE.index('--train_accum') + 1])
+    log(f'train_trunk step shares: K3 fwd '
+        f'{accum * k3["fwd"]["ms"] / 1e3 / trunk_s:.2%}, K3 bwd '
+        f'{accum * k3["bwd"]["ms"] / 1e3 / trunk_s:.2%} of {trunk_s:.3f} '
+        f's/step (plain trunk {s_step:.3f} s/step); peak device memory '
+        f'{trunk_peak / 2**30:.2f} GiB')
+    torch.cuda.empty_cache()
+
+    main_run = phase_main(M, run, val)
     kern = phase_kernel(K)
     phase_member_time()
     phase_breakdown(run, val)
@@ -570,6 +806,23 @@ def main() -> int:
         'bound_by': kern['bound_by'],
         'library_ms': None,          # no single PyTorch call computes it
     }]
+    # K3: times and bounds summed over one microbatch's 20 blocks
+    for kind, line in (('fwd', 436), ('bwd', 514)):
+        o = k3[kind]
+        kernels.append({
+            'name': f'fused_double_conv_{kind}',
+            'route': 'cuda',
+            'source': 'mmlf_tpu_torch/csrc/conv_block.cu',
+            'replaces': f'mmlf_tpu/ops/pallas/conv_block.py:{line}',
+            'launches': (k3_launches if kind == 'fwd'
+                         else trunk_launches_bwd),
+            'max_abs_err': o['err'],
+            'ms': o['ms'],
+            'plain_ms': o['plain_ms'],
+            'bound_ms': o['bound_ms'],
+            'bound_by': o['bound_by'],
+            'library_ms': None,      # no single PyTorch call computes it
+        })
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

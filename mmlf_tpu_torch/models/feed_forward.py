@@ -31,8 +31,12 @@ BatchNorm is ``ops/batchnorm.BatchNorm2d``: in train mode it normalizes
 with the batch statistics and keeps the biased variance in its running
 stats, with ``model_batchnorm_momentum`` as torch's momentum.
 ``init_default_`` gives the JAX package's initial distributions
-(lecun-normal convs, zero biases, BN 1/0, running stats 0/1).  The fused
-trunk of ``--pallas_trunk`` is not ported yet (ROADMAP.md Queue 1 item 2).
+(lecun-normal convs, zero biases, BN 1/0, running stats 0/1).
+
+``pallas_trunk`` (``--pallas_trunk``) runs the streams and the out_net of a
+``ksize=2`` net in train mode through kernel K3 (``models/pallas_trunk.py``),
+with the same weights, BN buffers and heads; eval keeps the plain path, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from torch import nn
 
 from ..ops.batchnorm import BatchNorm2d
 from ..ops.codecs import bin_centers, class_to_reg
+from .pallas_trunk import trunk_forward
 
 
 def laplacian(x: torch.Tensor, mu: torch.Tensor, b: torch.Tensor):
@@ -94,9 +99,11 @@ class FeedForward(nn.Module):
                  cross: bool = False, uncert: bool = False,
                  discrete: bool = False, no_batchnorm: bool = False,
                  batchnorm_momentum: float = 0.1,
-                 disp_min: float = -3.5, disp_max: float = 3.5):
+                 disp_min: float = -3.5, disp_max: float = 3.5,
+                 pallas_trunk: bool = False):
         super().__init__()
         self.ksize = ksize
+        self.pallas_trunk = pallas_trunk
         self.cross = cross
         self.uncert = uncert
         self.discrete = discrete
@@ -142,7 +149,8 @@ class FeedForward(nn.Module):
                    uncert=cfg.model_uncert, discrete=cfg.model_discrete,
                    no_batchnorm=cfg.model_no_batchnorm,
                    batchnorm_momentum=cfg.model_batchnorm_momentum,
-                   disp_min=cfg.val_disp_min, disp_max=cfg.val_disp_max)
+                   disp_min=cfg.val_disp_min, disp_max=cfg.val_disp_max,
+                   pallas_trunk=cfg.pallas_trunk)
 
     @property
     def steps(self) -> int:
@@ -151,19 +159,13 @@ class FeedForward(nn.Module):
     def forward(self, h_views, v_views, i_views=None, d_views=None,
                 folded: bool = False):
         fold = (lambda s: s) if folded else _fold
-        # 't': the reference's transpose of the horizontal stream
-        x_h = fold(h_views).transpose(2, 3)
-        f_h = self.in_net_hv(x_h).transpose(2, 3)
-        f_v = self.in_net_hv(fold(v_views))
-        feats = [f_h, f_v]
-        if not self.cross:
-            # 'tf': transpose, then mirror the original-H axis (now last)
-            x_i = fold(i_views).transpose(2, 3).flip(-1)
-            f_i = self.in_net_id(x_i).flip(-1).transpose(2, 3)
-            f_d = self.in_net_id(fold(d_views))
-            feats += [f_i, f_d]
-
-        output = self.out_net(torch.cat(feats, dim=1)).float()
+        if self.pallas_trunk and self.ksize == 2 and self.training:
+            stacks = [fold(s) for s in (h_views, v_views)] + (
+                [] if self.cross else [fold(i_views), fold(d_views)])
+            output = trunk_forward(self, *stacks).float()
+        else:
+            output = self._plain_trunk(fold, h_views, v_views, i_views,
+                                       d_views).float()
         mean = output[:, 0]
 
         scores = one_hot = posterior = logvar = None
@@ -189,6 +191,20 @@ class FeedForward(nn.Module):
 
         return {'mean': mean, 'logvar': logvar, 'scores': scores,
                 'one_hot': one_hot, 'posterior': posterior}
+
+    def _plain_trunk(self, fold, h_views, v_views, i_views, d_views):
+        # 't': the reference's transpose of the horizontal stream
+        x_h = fold(h_views).transpose(2, 3)
+        f_h = self.in_net_hv(x_h).transpose(2, 3)
+        f_v = self.in_net_hv(fold(v_views))
+        feats = [f_h, f_v]
+        if not self.cross:
+            # 'tf': transpose, then mirror the original-H axis (now last)
+            x_i = fold(i_views).transpose(2, 3).flip(-1)
+            f_i = self.in_net_id(x_i).flip(-1).transpose(2, 3)
+            f_d = self.in_net_id(fold(d_views))
+            feats += [f_i, f_d]
+        return self.out_net(torch.cat(feats, dim=1))
 
 
 # flax's lecun_normal: a normal truncated at two standard deviations,

@@ -17,6 +17,11 @@ running statistics.  In train mode the normalization runs through
 ``F.batch_norm`` on the batch statistics (the biased variance), and
 autograd gives the backward; the running statistics are updated from a
 separate reduction of the detached input.
+
+The fused trunk of ``--pallas_trunk`` (``models/pallas_trunk.py``) takes
+the batch statistics from kernel K3's per-channel sums instead:
+``affine_from_sums`` turns them into the next block's input affine and
+updates the same running buffers.
 """
 
 from __future__ import annotations
@@ -45,3 +50,26 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def affine_from_sums(self, ps: torch.Tensor, pss: torch.Tensor,
+                         count: float):
+        """Train-mode BatchNorm from per-channel sums, as ``(scale,
+        shift)`` of ``y ↦ scale·y + shift``.
+
+        ``ps`` and ``pss`` are Σy and Σy² over the ``count`` pixels of the
+        batch.  The statistics are ``mean = ps / count`` and the biased
+        ``var = pss / count − mean²`` (the formula of the JAX package's
+        ``--pallas_trunk``, not ``var_mean``); the running statistics and
+        ``num_batches_tracked`` are updated from the detached values as
+        ``forward`` updates them.  Gradients flow to ``ps``, ``pss``, the
+        weight and the bias.
+        """
+        mean = ps / count
+        var = pss / count - mean * mean
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return scale, self.bias - mean * scale

@@ -1,0 +1,241 @@
+"""Fused double-conv trunk block (kernel K3), forward and backward.
+
+Replaces the Pallas TPU kernel ``mmlf_tpu/ops/pallas/conv_block.py``
+(``fused_double_conv``: forward ``_fwd`` / ``_fwd_kernel``, backward
+``_fused_bwd_rule`` / ``_bwd_kernel``).  One block of the conv trunk on
+NCHW float32 activations:
+
+    z   = [relu]([si·x + ti])           the previous block's BN + ReLU
+    y1  = relu(conv2×2_pad1(z) + b1)    (B, Cout, H+1, W+1), never saved
+    y2  = conv2×2_pad0(y1) + b2         (B, Cout, H, W)
+    ps, pss = Σ y2, Σ y2²               per channel over (B, H, W)
+
+The backward recomputes y1 from ``x``; the residuals are ``x`` and ``y2``.
+Weights are OIHW, as the port's ``nn.Conv2d`` holds them; the layout is the
+port's NCHW (the TPU kernel's lane canvas does not carry over).
+
+On CUDA tensors ``fused_double_conv_fwd`` / ``fused_double_conv_bwd``
+launch the hand-written kernels of ``csrc/conv_block.cu`` (its note gives
+the bound on an H100: operations); on CPU tensors they take the plain
+PyTorch versions beside them.  There is no fallback: a build or launch
+error raises.  Each counts its kernel launches in ``.launches``.
+``fused_double_conv`` is the autograd Function the trunk calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.nn import functional as F
+
+from . import build
+
+
+def _input_stage(x, si, ti, relu_in: bool, affine_in: bool):
+    """``(pre, z)``: the affine'd input and the input stage's output."""
+    pre = x * si[:, None, None] + ti[:, None, None] if affine_in else x
+    return pre, (torch.relu(pre) if relu_in else pre)
+
+
+def plain_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
+                          affine_in: bool):
+    """Plain PyTorch version of the forward: ``(y2, ps, pss)``."""
+    _, z = _input_stage(x, si, ti, relu_in, affine_in)
+    y1 = torch.relu(F.conv2d(z, w1, b1, padding=1))
+    y2 = F.conv2d(y1, w2, b2)
+    return y2, y2.sum((0, 2, 3)), (y2 * y2).sum((0, 2, 3))
+
+
+def plain_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
+                          relu_in: bool, affine_in: bool):
+    """Plain PyTorch version of the backward, the formulas of the TPU
+    kernel's ``_bwd_kernel`` written out (no autograd): ``(dx, dsi, dti,
+    dw1, db1, dw2, db2)``."""
+    grad = torch.nn.grad
+    pre, z = _input_stage(x, si, ti, relu_in, affine_in)
+    y1 = torch.relu(F.conv2d(z, w1, b1, padding=1))
+    g2 = dy2 + dps[:, None, None] + 2.0 * y2 * dpss[:, None, None]
+    dy1 = grad.conv2d_input(y1.shape, w2, g2) * (y1 > 0)
+    dw2 = grad.conv2d_weight(y1, w2.shape, g2)
+    dz = grad.conv2d_input(z.shape, w1, dy1, padding=1)
+    dw1 = grad.conv2d_weight(z, w1.shape, dy1, padding=1)
+    if relu_in:
+        dz = dz * (pre > 0)
+    if affine_in:
+        dsi, dti = (dz * x).sum((0, 2, 3)), dz.sum((0, 2, 3))
+        dx = dz * si[:, None, None]
+    else:
+        dsi, dti = torch.zeros_like(si), torch.zeros_like(ti)
+        dx = dz
+    return dx, dsi, dti, dw1, dy1.sum((0, 2, 3)), dw2, g2.sum((0, 2, 3))
+
+
+def _check(x, si, ti, w1, b1, w2, tensors) -> None:
+    """Shapes, dtypes and devices of one block's arguments."""
+    if x.ndim != 4:
+        raise ValueError(f'x must be (B, Cin, H, W), got {tuple(x.shape)}')
+    cin, cout = x.shape[1], w1.shape[0]
+    want = {'si': (cin,), 'ti': (cin,), 'w1': (cout, cin, 2, 2),
+            'b1': (cout,), 'w2': (cout, cout, 2, 2)}
+    for name, t in (('si', si), ('ti', ti), ('w1', w1), ('b1', b1),
+                    ('w2', w2)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                             f'{want[name]}')
+    for name, t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f'{name} must be float32, got {t.dtype}')
+        if t.device != x.device:
+            raise ValueError(f'{name} is on {t.device}, x on {x.device}')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no fused double conv for device {x.device}')
+
+
+def _gemm_weight(w):
+    """OIHW conv weight → the kernel's ``(4·Cin, Cout)`` GEMM weight."""
+    return w.reshape(w.shape[0], -1).t().contiguous()
+
+
+def _dgrad_weight(w):
+    """GEMM weight of the dgrad conv of ``w``: the kernel flipped in space
+    and in/out swapped (pad 1 ↔ pad 0)."""
+    return _gemm_weight(w.transpose(0, 1).flip(2, 3))
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _launch(name: str, args, n_ptrs: int) -> None:
+    lib = build.load('conv_block')
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    build.check(lib, fn(*args), f'{name} launch')
+
+
+def wgrad_scratch(b: int, cin: int, h: int, w: int, cout: int) -> int:
+    """Floats of weight-gradient scratch the backward kernel needs."""
+    lib = build.load('conv_block')
+    fn = lib.mmlf_conv_block_wgrad_scratch
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 5
+    return int(fn(b, cin, h, w, cout))
+
+
+def fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
+                          affine_in: bool):
+    """Forward of one trunk block: ``(y2, ps, pss)``.
+
+    :param x: ``(B, Cin, H, W)`` float32 block input
+    :param si, ti: ``(Cin,)`` input affine (read only with ``affine_in``)
+    :param w1, b1: ``(Cout, Cin, 2, 2)``, ``(Cout,)``; conv 1, pad 1
+    :param w2, b2: ``(Cout, Cout, 2, 2)``, ``(Cout,)``; conv 2, pad 0
+    """
+    _check(x, si, ti, w1, b1, w2, (('x', x), ('si', si), ('ti', ti),
+                                   ('w1', w1), ('b1', b1), ('w2', w2),
+                                   ('b2', b2)))
+    if b2.shape != b1.shape:
+        raise ValueError(f'b2 has shape {tuple(b2.shape)}, expected '
+                         f'{tuple(b1.shape)}')
+    if x.device.type == 'cpu':
+        return plain_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in,
+                                     affine_in)
+    b, cin, h, w = x.shape
+    cout = w1.shape[0]
+    x, si, ti, b1, b2 = (t.contiguous() for t in (x, si, ti, b1, b2))
+    new = dict(dtype=torch.float32, device=x.device)
+    y1 = torch.empty((b, cout, h + 1, w + 1), **new)
+    y2 = torch.empty((b, cout, h, w), **new)
+    part = torch.empty(2 * b * cout, **new)
+    ps, pss = torch.empty(cout, **new), torch.empty(cout, **new)
+    # the weights' GEMM copies stay referenced until the launch is queued
+    w1t, w2t = _gemm_weight(w1), _gemm_weight(w2)
+    args = _ptrs(x, si, ti, w1t, b1, w2t, b2, y1, y2, part, ps, pss)
+    _launch('mmlf_conv_block_fwd',
+            args + [b, cin, h, w, cout, int(relu_in), int(affine_in),
+                    x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream], 12)
+    fused_double_conv_fwd.launches += 1
+    return y2, ps, pss
+
+
+fused_double_conv_fwd.launches = 0
+
+
+def fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
+                          relu_in: bool, affine_in: bool):
+    """Backward of one trunk block from the residuals ``x`` and ``y2`` and
+    the cotangents of ``(y2, ps, pss)``: ``(dx, dsi, dti, dw1, db1, dw2,
+    db2)``.  ``dsi`` and ``dti`` are zeros without ``affine_in``."""
+    _check(x, si, ti, w1, b1, w2, (('x', x), ('si', si), ('ti', ti),
+                                   ('w1', w1), ('b1', b1), ('w2', w2),
+                                   ('y2', y2), ('dy2', dy2), ('dps', dps),
+                                   ('dpss', dpss)))
+    b, cin, h, w = x.shape
+    cout = w1.shape[0]
+    for name, t, want in (('y2', y2, (b, cout, h, w)),
+                          ('dy2', dy2, (b, cout, h, w)),
+                          ('dps', dps, (cout,)), ('dpss', dpss, (cout,))):
+        if tuple(t.shape) != want:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                             f'{want}')
+    if x.device.type == 'cpu':
+        return plain_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps,
+                                     dpss, relu_in, affine_in)
+    x, si, ti, b1, y2, dy2, dps, dpss = (
+        t.contiguous() for t in (x, si, ti, b1, y2, dy2, dps, dpss))
+    new = dict(dtype=torch.float32, device=x.device)
+    y1 = torch.empty((b, cout, h + 1, w + 1), **new)
+    dy1 = torch.empty((b, cout, h + 1, w + 1), **new)
+    g2 = torch.empty((b, cout, h, w), **new)
+    wpart = torch.empty(wgrad_scratch(b, cin, h, w, cout), **new)
+    bpart = torch.empty(2 * b * max(cin, cout), **new)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((cout, cin, 2, 2), **new)
+    dw2 = torch.empty((cout, cout, 2, 2), **new)
+    db1, db2 = torch.empty(cout, **new), torch.empty(cout, **new)
+    dsi, dti = torch.empty(cin, **new), torch.empty(cin, **new)
+    w1t, w1dg, w2dg = _gemm_weight(w1), _dgrad_weight(w1), _dgrad_weight(w2)
+    args = _ptrs(x, si, ti, w1t, b1, w1dg, w2dg, y2, dy2, dps, dpss, y1, g2,
+                 dy1, wpart, bpart, dx, dw1, db1, dw2, db2, dsi, dti)
+    _launch('mmlf_conv_block_bwd',
+            args + [b, cin, h, w, cout, int(relu_in), int(affine_in),
+                    x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream], 23)
+    fused_double_conv_bwd.launches += 1
+    return dx, dsi, dti, dw1, db1, dw2, db2
+
+
+fused_double_conv_bwd.launches = 0
+
+
+class _FusedDoubleConv(torch.autograd.Function):
+    """Autograd of one trunk block.  Saves the activations ``x`` and ``y2``
+    (and the small parameters), as the TPU kernel's custom VJP does; the
+    backward recomputes y1."""
+
+    @staticmethod
+    def forward(ctx, x, si, ti, w1, b1, w2, b2, relu_in, affine_in):
+        y2, ps, pss = fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2,
+                                            relu_in, affine_in)
+        ctx.save_for_backward(x, si, ti, w1, b1, w2, y2)
+        ctx.flags = (relu_in, affine_in)
+        return y2, ps, pss
+
+    @staticmethod
+    def backward(ctx, dy2, dps, dpss):
+        x, si, ti, w1, b1, w2, y2 = ctx.saved_tensors
+        grads = fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps,
+                                      dpss, *ctx.flags)
+        return grads + (None, None)
+
+
+def fused_double_conv(x, si, ti, w1, b1, w2, b2, relu_in: bool,
+                      affine_in: bool):
+    """One trunk block with autograd: ``(y2, ps, pss)`` (see
+    ``fused_double_conv_fwd``); gradients flow to every tensor argument."""
+    return _FusedDoubleConv.apply(x, si, ti, w1, b1, w2, b2, bool(relu_in),
+                                  bool(affine_in))

@@ -69,8 +69,9 @@ from .loop import train
 @click.option('--remat', is_flag=True,
               help='rematerialize conv blocks (not ported: raises)')
 @click.option('--pallas_trunk', is_flag=True,
-              help='run the out_net through the fused trunk kernel K3 '
-                   '(not ported: raises)')
+              help='run the train-mode conv trunk (the four streams and '
+                   'the out_net) through the fused double-conv kernel K3; '
+                   'eval stays on the plain path')
 @click.option('--train_accum', default=1,
               help='gradient-accumulation microbatches: bs=512 as '
                    '8x64 reproduces the reference 8-GPU recipe on one card')

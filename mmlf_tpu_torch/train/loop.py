@@ -16,6 +16,10 @@ The counterpart of ``mmlf_tpu.train.loop`` (which reproduces the reference
     losses and gradients are averaged uniformly, or weighted by their mask
     counts under ``--train_accum_exact``; the BatchNorm running statistics
     are those of chunk 0;
+  * ``--pallas_trunk``: the train-mode forward and backward of every conv
+    block (streams and out_net) run through kernel K3
+    (``models/pallas_trunk.py``); eval and in-train validation keep the
+    plain path, and so does ``--train_eval_mode`` (the model in eval mode);
   * ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` with the scheduled
     LR (warm-start ramp, cooling decay) written into the param group before
     each step: what ``optax.scale_by_adam`` with ``-lr·u`` computes;
@@ -31,7 +35,7 @@ The counterpart of ``mmlf_tpu.train.loop`` (which reproduces the reference
 
 Runs on the card by default (``device='cuda'``) in float32 with TF32 off.
 Not ported (each raises NotImplementedError, naming its ROADMAP.md entry):
-``--pallas_trunk``, ``--bf16``, ``--cache_bf16``, ``--remat``,
+``--bf16``, ``--cache_bf16``, ``--remat``,
 ``--mesh_data`` > 1, ``--model_unet``, ``--model_inn``,
 ``--host_pipeline`` and the host pipeline that the JAX package switches to
 when the scene cache exceeds 8 GiB or the scene shapes differ.
@@ -83,8 +87,6 @@ def check_ported(cfg: Config) -> None:
     if cfg.model_invertible:
         raise NotImplementedError(NOT_SUPPORTED_MSG)
     for flag, on, item in (
-            ('--pallas_trunk', cfg.pallas_trunk,
-             'Queue 1 item 2: fused trunk with kernel K3'),
             ('--bf16', cfg.bf16, 'Queue 1 item 11: training options'),
             ('--cache_bf16', cfg.cache_bf16,
              'Queue 1 item 11: training options'),
@@ -190,21 +192,28 @@ def val_loss(cfg: Config, output: dict, gt, mpi, mask):
 
 def check_accum(cfg: Config) -> None:
     """``--train_accum_exact`` weights every chunk by one mask count; raise
-    where a loss term normalizes by another count.  Beyond the JAX
-    package's guards, ``model_uncert`` with ``train_loss_multimodal``
-    raises even without an anchor: that loss divides by the chunk's mean
-    plane weight, a per-chunk normalizer."""
+    where a loss term normalizes by another count, with the JAX package's
+    guards.  Like the JAX package it accepts the multimodal uncertainty
+    loss without an anchor, though that loss divides by the chunk's mean
+    plane weight, a per-chunk normalizer (the inexactness ``ADVICE.md``
+    records)."""
     if not (cfg.train_accum_exact and cfg.train_accum > 1):
         return
     if cfg.train_loss_padding is not None:
         raise ValueError(
             '--train_accum_exact is incompatible with --train_loss_padding: '
             'the in/out-of-range two-term loss has no single mask count')
-    if cfg.model_uncert and cfg.train_loss_multimodal:
+    if cfg.model_inn:
         raise ValueError(
-            '--train_accum_exact with the multimodal uncertainty loss is '
-            'unsupported: it normalizes by the chunk\'s mean plane weight '
-            '(and its anchor over mask∧in-range), not by the mask count')
+            '--train_accum_exact does not apply to the INN: its IB loss '
+            'ignores the mask, and equal-sized chunks make the default '
+            'uniform averaging already exact')
+    if cfg.model_uncert and cfg.train_logvar_anchor > 0 and \
+            cfg.train_loss_multimodal:
+        raise ValueError(
+            '--train_accum_exact with a multimodal logvar anchor is '
+            'unsupported: the anchor normalizes over mask∧in-range, a '
+            'different count than the main loss')
 
 
 def microbatch_loss(cfg: Config, model: FeedForward, cache: PackedCache,
@@ -252,7 +261,8 @@ def train_step(cfg: Config, model: FeedForward, optimizer, cache,
         total = total + w * loss_c.detach()
         n_total = n_total + n_c
         if c == 0 and accum > 1:
-            # the running statistics of chunk 0 are the step's
+            # the running statistics of chunk 0 are the step's (the fused
+            # trunk updates the same BN buffers in place)
             stats0 = [b.detach().clone() for b in model.buffers()]
     if stats0 is not None:
         with torch.no_grad():

@@ -14,6 +14,7 @@ import torch
 from mmlf_tpu_torch.config import Config
 from mmlf_tpu_torch.models.ensemble import ensemble_forward
 from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
+from mmlf_tpu_torch.ops.kernels import conv_block as C
 from mmlf_tpu_torch.ops.kernels import posterior as K
 from mmlf_tpu_torch.ops.kernels import window_gather as W
 
@@ -122,9 +123,10 @@ def test_window_gather_kernel_matches_plain(cuda, with_mpi):
         assert torch.equal(g, w)
 
 
-def test_train_step_on_card_matches_cpu(cuda, tmp_path):
-    """One port train step (UPR, accum 2, augmentation on) on the card
-    against the same step on the CPU from the same weights and batch."""
+def _train_step_cpu_and_card(cuda, tmp_path, **kw):
+    """One port train step (UPR, accum 2, augmentation on) on the CPU and on
+    the card from the same weights and batch: ``[(loss, grads, K1
+    launches, K3 forward launches, K3 backward launches)]``, CPU first."""
     from mmlf_tpu_torch.data.hci4d import HCI4D
     from mmlf_tpu_torch.data.pipeline import DevicePipeline
     from mmlf_tpu_torch.data.synth import generate_dataset
@@ -136,23 +138,29 @@ def test_train_step_on_card_matches_cpu(cuda, tmp_path):
     cfg = Config(train_trainset=root, train_bs=8, train_ps=32,
                  train_lr=1e-3, train_max_downscale=2, train_accum=2,
                  model_chs=8, model_in_blocks=1, model_out_blocks=2,
-                 model_uncert=True).finalize()
+                 model_uncert=True, **kw).finalize()
+    counters = (W.window_gather, C.fused_double_conv_fwd,
+                C.fused_double_conv_bwd)
     results = []
     for dev in ('cpu', cuda):
         pipe = DevicePipeline(HCI4D(root, cache=True), cfg, seed=3,
                               device=dev)
         model = init_default_(FeedForward.from_config(cfg), 0).to(dev)
         opt = loop.make_optimizer(model)
-        before = W.window_gather.launches
+        before = [f.launches for f in counters]
         loss = loop.train_step(cfg, model, opt, pipe.cache,
                                pipe.sample_batch(8), 5)
-        launches = W.window_gather.launches - before
+        launches = [f.launches - n for f, n in zip(counters, before)]
         results.append((float(loss), {n: p.grad.cpu() for n, p in
-                                      model.named_parameters()}, launches))
-    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = results
-    assert (n_cpu, n_gpu) == (0, 2)
-    # cuDNN sums the convolutions in another order (TF32 off); gradients
-    # are compared, not Adam's ~sign(g) first update
+                                      model.named_parameters()},
+                        *launches))
+    return results
+
+
+def _assert_step_close(results):
+    (l_cpu, g_cpu, *_), (l_gpu, g_gpu, *_) = results
+    # the card sums the convolutions in another order (TF32 off);
+    # gradients are compared, not Adam's ~sign(g) first update
     assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
     # (a conv bias feeding a train-mode BN has a zero gradient: rounding
     # noise on both sides, held to the model-wide scale)
@@ -162,3 +170,111 @@ def test_train_step_on_card_matches_cpu(cuda, tmp_path):
         torch.testing.assert_close(g_gpu[name], g_cpu[name], rtol=1e-3,
                                    atol=1e-4 * scale + 1e-5 * g_max,
                                    msg=name)
+
+
+def test_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """The plain trunk: cuDNN on the card, K1 launched per microbatch."""
+    results = _train_step_cpu_and_card(cuda, tmp_path)
+    assert [r[2:] for r in results] == [(0, 0, 0), (2, 0, 0)]
+    _assert_step_close(results)
+
+
+def test_trunk_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """``--pallas_trunk``: every train-mode block through K3 on the card
+    (4 streams + 2 out_net blocks per microbatch), the plain versions on
+    the CPU."""
+    results = _train_step_cpu_and_card(cuda, tmp_path, pallas_trunk=True)
+    assert [r[2:] for r in results] == [(0, 0, 0), (2, 12, 12)]
+    _assert_step_close(results)
+
+
+# K3 at the recipe's block shapes (Cin, Cout, relu_in, affine_in): stream
+# entry, stream, out_net, UPR head, DPP head, a block without BN
+K3_BLOCKS = [(27, 70, False, False), (70, 70, True, True),
+             (280, 280, True, True), (280, 2, True, True),
+             (280, 108, True, True), (70, 70, True, False)]
+# Kernel against plain version (cuDNN with TF32 off): the same fp32
+# products summed in another order, over K = 4 Cin terms per output and
+# over up to B·H·W = 590k pixels for the BN sums and the weight
+# gradients: each output within 1e-4 of its largest magnitude.  The inputs
+# are dyadic (few-bit multiples of powers of two): then x·si + ti and y1
+# are exact in fp32 in any summation order, and the ReLU masks [pre > 0]
+# and [y1 > 0] agree bit for bit.  With real-valued inputs a few of the
+# ~40M pre-activations of a recipe-size block lie within rounding of zero,
+# and a flipped relu' moves dx and the sums by O(1).
+K3_REL = 1e-4
+
+
+def _k3_inputs(dev, b, h, w, cin, cout, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(lo, hi, shape, scale):
+        a = rng.integers(lo, hi + 1, shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev)
+
+    x = t(-4, 4, (b, cin, h, w), 1 / 4)
+    si, ti = t(2, 6, cin, 1 / 4), t(-4, 4, cin, 1 / 8)
+    w1, b1 = t(-3, 3, (cout, cin, 2, 2), 1 / 16), t(-2, 2, cout, 1 / 16)
+    w2, b2 = t(-3, 3, (cout, cout, 2, 2), 1 / 16), t(-2, 2, cout, 1 / 16)
+    dy2 = t(-4, 4, (b, cout, h, w), 1 / 4)
+    dps, dpss = t(-2, 2, cout, 1 / 16), t(-2, 2, cout, 1 / 256)
+    return x, si, ti, w1, b1, w2, b2, dy2, dps, dpss
+
+
+def _assert_rel(got, want, name):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert got.shape == want.shape, name
+    assert err <= K3_REL * scale + 1e-30, (name, err, scale)
+
+
+@pytest.mark.parametrize('size', [(64, 96, 96), (3, 13, 17)],
+                         ids=['recipe', 'ragged'])
+@pytest.mark.parametrize('cin,cout,relu_in,affine_in', K3_BLOCKS)
+def test_conv_block_kernels_match_plain(cuda, size, cin, cout, relu_in,
+                                        affine_in):
+    b, h, w = size
+    x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = _k3_inputs(
+        cuda, b, h, w, cin, cout, seed=cin + cout + h)
+    n_fwd, n_bwd = C.fused_double_conv_fwd.launches, \
+        C.fused_double_conv_bwd.launches
+    got = C.fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in,
+                                  affine_in)
+    want = C.plain_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in,
+                                   affine_in)
+    for g, wt, name in zip(got, want, ('y2', 'ps', 'pss')):
+        _assert_rel(g, wt, name)
+    y2 = want[0]
+    got = C.fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
+                                  relu_in, affine_in)
+    want = C.plain_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps,
+                                   dpss, relu_in, affine_in)
+    torch.cuda.synchronize()
+    assert (C.fused_double_conv_fwd.launches - n_fwd,
+            C.fused_double_conv_bwd.launches - n_bwd) == (1, 1)
+    for g, wt, name in zip(got, want, ('dx', 'dsi', 'dti', 'dw1', 'db1',
+                                       'dw2', 'db2')):
+        _assert_rel(g, wt, name)
+    if not affine_in:
+        assert float(got[1].abs().max() + got[2].abs().max()) == 0.0
+
+
+def test_conv_block_autograd_on_card(cuda):
+    """The autograd Function launches K3 forward and backward once each and
+    returns a gradient for every tensor argument."""
+    x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = _k3_inputs(
+        cuda, 2, 9, 11, 8, 6, seed=0)
+    args = [a.requires_grad_() for a in (x, si, ti, w1, b1, w2, b2)]
+    n_fwd, n_bwd = C.fused_double_conv_fwd.launches, \
+        C.fused_double_conv_bwd.launches
+    y2, ps, pss = C.fused_double_conv(*args, True, True)
+    loss = (y2 * dy2).sum() + (ps * dps).sum() + (pss * dpss).sum()
+    grads = torch.autograd.grad(loss, args)
+    want = C.plain_double_conv_bwd(*[a.detach() for a in args[:6]],
+                                   y2.detach(), dy2, dps, dpss, True, True)
+    assert (C.fused_double_conv_fwd.launches - n_fwd,
+            C.fused_double_conv_bwd.launches - n_bwd) == (1, 1)
+    for g, w, name in zip(grads, (want[0], want[1], want[2], want[3],
+                                  want[4], want[5], want[6]),
+                          ('dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2', 'db2')):
+        _assert_rel(g, w, name)

@@ -355,18 +355,25 @@ def test_init_default_distributions():
 
 
 def test_accum_exact_guards():
+    """The JAX package's guards (mmlf_tpu/train/loop.py): padding and the
+    INN raise; the multimodal uncertainty loss raises with a logvar anchor
+    and passes without one."""
     base = dict(train_accum=2, train_accum_exact=True, model_uncert=True)
     with pytest.raises(ValueError, match='train_loss_padding'):
         loop.check_accum(Config(**base, train_loss_padding=3.5).finalize())
-    # a deliberate guard beyond the JAX package's: no anchor needed
+    with pytest.raises(ValueError, match='INN'):
+        loop.check_accum(Config(train_accum=2, train_accum_exact=True,
+                                model_inn=True).finalize())
     with pytest.raises(ValueError, match='multimodal'):
-        loop.check_accum(Config(**base,
-                                train_loss_multimodal=True).finalize())
+        loop.check_accum(Config(**base, train_loss_multimodal=True,
+                                train_logvar_anchor=0.5).finalize())
+    loop.check_accum(Config(**base, train_loss_multimodal=True).finalize())
     loop.check_accum(Config(**base).finalize())
 
 
 @pytest.mark.parametrize('kw,match', [
-    ({'pallas_trunk': True}, 'ROADMAP'), ({'bf16': True}, 'ROADMAP'),
+    ({'pallas_trunk': True, 'model_unet': True}, 'ROADMAP'),
+    ({'bf16': True}, 'ROADMAP'),
     ({'cache_bf16': True}, 'ROADMAP'), ({'remat': True}, 'ROADMAP'),
     ({'host_pipeline': True}, 'ROADMAP'), ({'mesh_data': 2}, 'ROADMAP'),
     ({'model_unet': True}, 'ROADMAP'), ({'model_inn': True}, 'ROADMAP'),
@@ -390,10 +397,22 @@ def test_train_slice_matches_jax_then_validates(data_dirs, tmp_path):
     3 UPR steps with augmentation and validation at steps 0 and 2: the log
     rows agree; then the port's validate CLI runs ESE on the port's
     checkpoint."""
+    _slice_matches_jax_then_validates(data_dirs, tmp_path)
+
+
+def test_trunk_train_slice_matches_jax_then_validates(data_dirs, tmp_path):
+    """The same with ``--pallas_trunk`` on both sides: the JAX package's
+    Pallas trunk (interpret mode) against the port's K3 trunk (its plain
+    versions on the CPU); ESE validate of the checkpoint, which stores
+    ``pallas_trunk``, takes the plain eval path."""
+    _slice_matches_jax_then_validates(data_dirs, tmp_path, pallas_trunk=True)
+
+
+def _slice_matches_jax_then_validates(data_dirs, tmp_path, **extra):
     from click.testing import CliRunner
     from mmlf_tpu_torch.validate.cli import main as validate_main
 
-    kw = _kw(data_dirs, model_uncert=True)
+    kw = _kw(data_dirs, model_uncert=True, **extra)
     jcfg, cfg = JConfig(**kw).finalize(), Config(**kw).finalize()
     jout, tout = str(tmp_path / 'jax'), str(tmp_path / 'torch')
     os.makedirs(jout)
