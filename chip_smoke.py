@@ -28,11 +28,15 @@ Phases, in order; any failure exits non-zero and prints no result:
              steps; checks the log rows, the checkpoint and that K3
              forward and backward each launched 20 × accum × steps times
              (and K1 accum × steps); prints the same numbers as train;
-7. K3      — the fused double-conv block forward and backward against
-             their plain versions at the recipe's block shapes (B 64, 96²:
-             27→70, 70→70, 280→280, 280→2), their times, the plain
-             versions', the bound and, as context, the port's plain
-             ConvBlock (cuDNN) forward and backward;
+7. K3      — the fused double-conv block's error against a float64
+             evaluation on real-valued inputs (280→280, recipe and ragged
+             sizes) within 4x the fp32 plain version's; forward and
+             backward against their plain versions at the recipe's block
+             shapes (B 64, 96²: 27→70, 70→70, 280→280, 280→2, and the DPP
+             head's 280→108), their times, the plain versions', the bound
+             (3xTF32 on the tensor cores; the FFMA bound as context) and,
+             as context, the port's plain ConvBlock (cuDNN) forward and
+             backward;
 8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
@@ -75,20 +79,32 @@ RECIPE = ['--train_shift', '2.5', '--train_lr', '1e-3', '--train_bs', '512',
           '--train_ps', '96', '--train_warm_start', '--model_uncert',
           '--train_accum', '8']
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, TF32 FLOP/s of the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+# an fp32-accurate product in 3xTF32 (hi*hi' + hi*lo' + lo*hi') costs three
+# TF32 products: the least time of K3's GEMMs on this card
+PEAK_3XTF32 = PEAK_TF32 / 3
 SFU_PER_SM_CLK = 16          # MUFU.EX2 results per SM per clock (Hopper)
 TOL = dict(rtol=1e-4, atol=1e-6)   # ex2.approx on a pre-scaled argument
 # K3 against its plain version (cuDNN, TF32 off) on dyadic inputs, where the
-# ReLU masks agree bit for bit: fp32 sums in another order (K = 4 Cin terms
-# per output, up to 590k pixels per BN sum and weight gradient), each
-# output within this fraction of its largest magnitude
+# ReLU masks agree bit for bit: K3's products are 3xTF32 (fp32-accurate
+# split products on the tensor cores) summed in another order than cuDNN's
+# fp32 FFMA (K = 4 Cin terms per output, up to 590k pixels per BN sum and
+# weight gradient), each output within this fraction of its largest
+# magnitude
 K3_REL = 1e-4
+# on real-valued inputs (every operand inexact in TF32) each K3 output's
+# error against a float64 evaluation stays within this factor of the fp32
+# plain version's: 3xTF32 keeps fp32's accuracy, one TF32 product would be
+# ~500x off
+K3_PREC_FACTOR = 4.0
 # the recipe's K3 block shapes (Cin, Cout, relu_in, affine_in) and their
-# launches per microbatch
+# launches per microbatch; 280->108 is the DPP head (not in the UPR recipe)
 K3_BLOCKS = [((27, 70, False, False), 4), ((70, 70, True, True), 8),
-             ((280, 280, True, True), 7), ((280, 2, True, True), 1)]
+             ((280, 280, True, True), 7), ((280, 2, True, True), 1),
+             ((280, 108, True, True), 0)]
 
 
 def log(*args):
@@ -442,12 +458,14 @@ def k3_inputs(b, h, w, cin, cout, seed):
     return x, si, ti, w1, b1, w2, b2, dy2, dps, dpss
 
 
-def k3_bound(b, h, w, cin, cout):
+def k3_bound(b, h, w, cin, cout, peak=PEAK_3XTF32):
     """Least times of K3 on the card, ``((fwd ms, by), (bwd ms, by))``.
     Operations: the forward's two k=2 convs (to (H+1)x(W+1) and HxW); the
     backward's five (y1 again, two dgrads, two wgrads), 2 FLOP per
-    multiply-add at the fp32 peak.  Bytes: each input read once, each
-    output written once (fwd: x, y2; bwd: x, y2, dy2, dx; plus weights)."""
+    multiply-add at ``peak`` (fp32-accurate products: 3xTF32 on the tensor
+    cores; ``PEAK_FP32`` gives the FFMA bound as context).  Bytes: each
+    input read once, each output written once (fwd: x, y2; bwd: x, y2, dy2,
+    dx; plus weights)."""
     p1, p0 = b * (h + 1) * (w + 1), b * h * w
     c1, c2 = 2 * 4 * cin * cout, 2 * 4 * cout * cout
     ops_f = p1 * c1 + p0 * c2
@@ -458,10 +476,76 @@ def k3_bound(b, h, w, cin, cout):
     by_b = 4 * (2 * act_in + 2 * act_out + 2 * params + 2 * cout)
 
     def bound(ops, n_bytes):
-        t_ops, t_bytes = ops / PEAK_FP32, n_bytes / PEAK_BYTES
+        t_ops, t_bytes = ops / peak, n_bytes / PEAK_BYTES
         return (max(t_ops, t_bytes) * 1e3,
                 'operations' if t_ops >= t_bytes else 'bytes')
     return bound(ops_f, by_f), bound(ops_b, by_b)
+
+
+def k3_real_inputs(b, h, w, cin, cout, seed):
+    """Seeded real-valued inputs of one K3 block on the card (no operand is
+    exact in TF32) for ``relu_in=False``, with b1 large enough that
+    y1 > 0 everywhere: no ReLU mask can flip, so the whole block is
+    continuous and its error is the arithmetic's alone."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    x = t(rng.standard_normal((b, cin, h, w)))
+    si, ti = t(rng.uniform(0.5, 1.5, cin)), t(rng.uniform(-0.5, 0.5, cin))
+    w1 = t(rng.standard_normal((cout, cin, 2, 2)) / math.sqrt(4 * cin))
+    b1 = t(rng.uniform(10.0, 11.0, cout))
+    w2 = t(rng.standard_normal((cout, cout, 2, 2)) / math.sqrt(4 * cout))
+    b2 = t(rng.uniform(-0.1, 0.1, cout))
+    dy2 = t(rng.standard_normal((b, cout, h, w)))
+    dps, dpss = t(rng.standard_normal(cout) * 0.1), \
+        t(rng.standard_normal(cout) * 0.01)
+    return x, si, ti, w1, b1, w2, b2, dy2, dps, dpss
+
+
+def k3_precision(C, b, h, w, cin, cout, seed) -> dict:
+    """K3 forward and backward on real-valued inputs against a float64
+    evaluation of the plain version: each output's max abs error must stay
+    within ``K3_PREC_FACTOR`` x the fp32 plain version's (cuDNN, TF32 off;
+    floored at one fp32 ulp of the output's largest magnitude).  Returns
+    ``{output: (kernel err, plain err)}``."""
+    import torch
+    from torch.nn import functional as F
+    x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = k3_real_inputs(
+        b, h, w, cin, cout, seed)
+    fa = (x, si, ti, w1, b1, w2, b2, False, True)
+    d = [a.double() for a in (x, si, ti, w1, b1, w2, b2)]
+    y1_min = float(F.conv2d(d[0] * d[1][:, None, None] + d[2][:, None, None],
+                            d[3], d[4], padding=1).min())
+    if y1_min <= 0:
+        raise AssertionError(f'K3 precision inputs: min y1 {y1_min} <= 0')
+    want = C.plain_double_conv_fwd(*d, False, True)
+    outs = {'fwd': (C.fused_double_conv_fwd(*fa),
+                    C.plain_double_conv_fwd(*fa), want,
+                    ('y2', 'ps', 'pss'))}
+    y2 = outs['fwd'][1][0]          # the same y2 residual for all three
+    ba = (x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, False, True)
+    want_b = C.plain_double_conv_bwd(*d[:6], y2.double(), dy2.double(),
+                                     dps.double(), dpss.double(), False, True)
+    outs['bwd'] = (C.fused_double_conv_bwd(*ba), C.plain_double_conv_bwd(*ba),
+                   want_b, ('dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2', 'db2'))
+    torch.cuda.synchronize()
+    res = {}
+    for kind, (got, plain, ref, names) in outs.items():
+        for g, p, r, name in zip(got, plain, ref, names):
+            e_k = float((g.double() - r).abs().max())
+            e_p = float((p.double() - r).abs().max())
+            floor = 2.0 ** -24 * float(r.abs().max())
+            if e_k > K3_PREC_FACTOR * max(e_p, floor):
+                raise AssertionError(
+                    f'K3 {kind} {cin}->{cout} {name} on real-valued inputs: '
+                    f'error vs float64 {e_k:.3e} > {K3_PREC_FACTOR} x the '
+                    f'fp32 plain version\'s {e_p:.3e}')
+            res[name] = (e_k, e_p)
+    return res
 
 
 def k3_breakdown(C, fa, ba) -> None:
@@ -487,7 +571,8 @@ def k3_breakdown(C, fa, ba) -> None:
 
 
 def phase_conv_block(M) -> dict:
-    """K3 forward and backward against their plain versions at the recipe's
+    """K3's precision on real-valued inputs (``k3_precision``), then K3
+    forward and backward against their plain versions at the recipe's
     block shapes (B 64, 96²), with the times of kernel, plain version and
     the port's plain ConvBlock (cuDNN fwd and autograd bwd); the totals
     over one microbatch's 20 blocks go into the kernels line."""
@@ -495,6 +580,14 @@ def phase_conv_block(M) -> dict:
     from mmlf_tpu_torch.models.feed_forward import conv_block
 
     C = M.C
+    for size in ((64, 96, 96), (3, 13, 17)):
+        res = k3_precision(C, *size, 280, 280, seed=sum(size))
+        log(f'K3 precision 280->280 B={size[0]} {size[1]}x{size[2]} '
+            f'(real-valued, relu_in False, y1 > 0): max abs err vs float64, '
+            f'kernel / fp32 plain: '
+            + ', '.join(f'{k} {e:.2e}/{p:.2e}' for k, (e, p) in res.items())
+            + f' (limit {K3_PREC_FACTOR}x)')
+    torch.cuda.empty_cache()
     b, h, w = 64, 96, 96
     out = {'fwd': dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, n=0),
            'bwd': dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, n=0)}
@@ -531,6 +624,7 @@ def phase_conv_block(M) -> dict:
         plain_f = cuda_ms(lambda: C.plain_double_conv_fwd(*fa), reps=5)
         plain_b = cuda_ms(lambda: C.plain_double_conv_bwd(*ba), reps=5)
         (bound_f, by_f), (bound_b, by_b) = k3_bound(b, h, w, cin, cout)
+        (ffma_f, _), (ffma_b, _) = k3_bound(b, h, w, cin, cout, PEAK_FP32)
 
         # context: the port's plain ConvBlock (conv, relu, conv, BN, relu)
         # through cuDNN, forward and autograd backward
@@ -547,8 +641,10 @@ def phase_conv_block(M) -> dict:
             k3_breakdown(C, fa, ba)
         log(f'kernel fused_double_conv {cin}->{cout} B={b} {h}x{w} '
             f'(relu_in {relu_in}, affine_in {affine_in}): fwd {ms_f:.3f} ms '
-            f'(bound {bound_f:.3f} ms, {by_f}; plain {plain_f:.3f} ms), '
-            f'bwd {ms_b:.3f} ms (bound {bound_b:.3f} ms, {by_b}; plain '
+            f'(bound {bound_f:.3f} ms, {by_f}, 3xTF32; FFMA bound '
+            f'{ffma_f:.3f} ms; plain {plain_f:.3f} ms), '
+            f'bwd {ms_b:.3f} ms (bound {bound_b:.3f} ms, {by_b}; FFMA bound '
+            f'{ffma_b:.3f} ms; plain '
             f'{plain_b:.3f} ms); cuDNN ConvBlock fwd {cudnn_f:.3f} ms, '
             f'bwd {cudnn_fb - cudnn_f:.3f} ms; max err / max |plain| '
             + ', '.join(f'{k} {v:.1e}' for k, v in errs.items()))

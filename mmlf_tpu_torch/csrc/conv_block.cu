@@ -1,5 +1,5 @@
 // Fused double-conv trunk block (kernel K3), forward and backward, written
-// for Hopper.
+// for Hopper's tensor cores in fp32-accurate 3xTF32.
 //
 // Replaces the Pallas TPU kernel mmlf_tpu/ops/pallas/conv_block.py:
 // fused_double_conv, forward _fwd / _fwd_kernel and backward
@@ -22,56 +22,85 @@
 // Zero padding is in z, after the input stage: a tap outside the image reads
 // 0, not relu(ti).  relu' at 0 is 0 on both relus.
 //
+// Precision: 3xTF32.  Every operand a, whatever its value, is split as
+// a = hi + lo with hi = tf32(a) and lo = tf32(a - hi) (cvt.rna.tf32.f32; a -
+// hi is exact in fp32), and each product is lo*hi' + hi*lo' + hi*hi' (the two
+// small cross terms first), lo*lo' dropped.  hi + lo carries 22 of a's 24
+// significant bits, so a dot product stays within a small factor of an fp32
+// FFMA dot product's error against float64, where one TF32 product (11 bits)
+// is ~500x off.  The tensor core rounds its fp32 sums its own way (measured
+// on the card with mma.sync: one chain over all of K ends 20-160x further
+// from float64 than fp32, and biased), so each chain of wgmma runs over one
+// 16-deep stage only and is then added into fp32 registers; the partial
+// sums over images and pixel chunks are added in fp64.
+//
 // What bounds it on an H100 SXM: operations.  At the recipe's out_net shape
 // (B 64, 96x96, 280 -> 280) the forward is 2 * 4 * 280^2 * (97^2 + 96^2) * 64
-// = 0.75 TFLOP against 1.3 GB of x and y2: 11 ms at the 67 TFLOP/s fp32 peak
-// of the CUDA cores, 0.4 ms of bytes.  The backward does five such GEMMs
-// (y1 again, two dgrads, two wgrads): 28 ms.  The port is held to fp32 with
-// TF32 off, so the products run as FFMA on the CUDA cores, not on the
-// tensor cores.
+// = 0.75 TFLOP and the backward's five GEMMs (y1 again, two dgrads, two
+// wgrads) 1.87 TFLOP, against 1.3 GB of x and y2 (0.4 ms of bytes).  An
+// fp32-accurate product costs three TF32 products: at 495 / 3 = 165
+// TFLOP/s of the tensor cores the bound is 4.5 ms forward and 11.4 ms
+// backward (at the 67 TFLOP/s fp32 FFMA peak of the CUDA cores it was 11.2
+// and 28.0 ms).
 //
-// Design (simple and right first; not the fastest form):
-//   * Layout: NCHW, the port's own.  The chain needs no conversion at the
-//     stream entry or at the out_net exit, and the plain versions compare
-//     as they are.  A pixel row is contiguous, so neighbouring threads take
-//     neighbouring pixels.
-//   * conv2x2_kernel: an implicit GEMM, out[n][m] = sum_k W[k][n] A[k][m]
-//     over pixels m = (b, oy, ox) and k = ci*4 + tap (the OIHW order, so the
-//     weight gradient comes out in the weights' own layout).  A block owns
-//     128 pixels x TN output channels: TN = 96 with 8 x 8 sums per thread
-//     (192 threads; 280 channels pad to 288, 70 to 96), 64 with 8 x 4 where
-//     that pads less (108), 32 or 16 for narrow outputs (27, 2, 1).  A step
-//     of the K loop is 4 input channels x 4 taps: each load slot takes the
-//     2x2 neighbourhood of one pixel in one channel with predicated loads
-//     (no branches; 32-bit offsets), applies the input stage and the zero
-//     padding, and the next step's loads are in flight while the
-//     shared-memory tiles of this step are used.  The epilogue adds the
-//     bias and the ReLU, or masks by [y1 > 0] for dy1.
-//   * Two launches per forward, with a transient y1 buffer: y1 is not kept
-//     in shared memory across both convs (that fused form is a later
-//     speed-up).  The saved residuals stay x and y2.
+// Design:
+//   * One tensor-core GEMM core serves all seven GEMMs of the block:
+//     out[row][col] = sum_k A[k][row] Bm[k][col] over stages of 16 k.  A
+//     block owns TM = 128 MI rows x TN columns; TN is the output width
+//     padded to 8 (280 runs as 2 x 144, 108 as 112, 70 as 72, 27 as 32, 2
+//     as 8).
+//   * conv2x2 (y1, y2, dgrad2 with the [y1 > 0] mask, dgrad1): rows are
+//     pixels m = (b, oy, ox), columns output channels, k = ci*4 + tap (the
+//     OIHW order: the weights are K-major as they are, and the weight
+//     gradient comes out in their layout).  wgrad (dW1, dW2): rows are the
+//     (ci, tap) columns of the implicit im2col, columns output channels, k
+//     the pixels of a chunk.
+//   * Warp-specialised: two consumer warpgroups run the products (wgmma
+//     m64nTNk8 .tf32 on MI row tiles each) and their fp32 sums; two
+//     producer warpgroups fill a ring of STAGES stages with cp.async (zero
+//     fill; 4-byte gathers of the 2x2 taps, 16-byte weight chunks) and
+//     transform each stage: the input stage, the zero padding (a tap
+//     outside the image is 0 after the stage), the split into (hi, lo), and
+//     the four operand tiles (A hi, A lo, B hi, B lo) written K-major with
+//     the 64-byte swizzle, which tf32 wgmma needs (both operands K-major;
+//     NCHW pixels are not).  NBUF operand buffers and named barriers pass
+//     stages between the roles; setmaxnreg gives the consumers the
+//     registers for two accumulator sets.
+//   * Epilogue through shared memory: the accumulators go to a (TN, TM)
+//     tile, then each consumer writes one row (pixel or im2col column) of
+//     every channel, so stores to NCHW are coalesced along pixel rows.
+//     conv2x2 adds the bias and the ReLU, or masks by [y1 > 0] for dy1.
+//   * Two launches per forward, with a transient y1 buffer; the saved
+//     residuals stay x and y2.
 //   * Cross-block sums (ps, pss, db1, db2, dsi, dti): per-(channel, image)
 //     partials from plane_kernel, then a fixed-order sum over the images.
-//     The weight gradients: wgrad_kernel splits the pixel reduction into
-//     chunks (not only over the batch) so that ~4 blocks per SM run, each
-//     block writes its partial tile (96, 64 or 16 output channels x 128
-//     GEMM columns, 8, 4 or 1 x 8 sums per thread, 16 pixels a step), and
-//     sum_rows_kernel adds the chunks in order.  No atomics: every sum is
-//     deterministic.
+//     The weight gradients split the pixel reduction into chunks (enough
+//     blocks to fill the card, at most WGRAD_MAX_CHUNK pixels each), each
+//     block writes its partial tile and sum_rows_kernel adds the chunks in
+//     order.  No atomics: every sum is deterministic.
 //   * dgrad of a k=2 conv is a k=2 conv with the kernel flipped in space and
 //     in/out swapped, pad 1 <-> pad 0; the caller passes those weights.
+//   * What holds it from the bound (measured on the card, 280 -> 280
+//     forward): the consumers alone would take ~1.5x the bound; the
+//     producers set the time.  The proxy fence that publishes their
+//     operand tiles to the tensor cores also waits for their cp.async
+//     copies in flight (without it the block would take ~0.57x as long),
+//     so the next step is copies that the fence does not wait for (bulk or
+//     TMA copies, which run in the async proxy).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TM = 128;        // output pixels per conv block
-constexpr int BK = 16;         // GEMM depth per step: 4 input channels x 4 taps
-constexpr int WK = 128;        // wgrad: GEMM columns (ci, tap) per block
-constexpr int WS = 16;         // wgrad: pixels per step
-constexpr int WGRAD_TARGET_BLOCKS = 4 * 132;
+constexpr int THREADS = 256;   // two warpgroups; a GEMM block has 2 x
+constexpr int BK = 16;         // GEMM depth of one stage
+constexpr int STAGES = 4;      // cp.async ring
+constexpr int NBUF = 3;        // operand buffers between producers and consumers
+// registers a thread, moved by setmaxnreg: 2 x 128 x (176 + 80) = 65536
+constexpr int CONSUMER_REGS = 176, PRODUCER_REGS = 80;
+constexpr int WGRAD_TARGET_BLOCKS = 2 * 132;
+constexpr long long WGRAD_MAX_CHUNK = 4096;   // pixels per wgrad partial
 
 enum { IN_AFFINE = 1, IN_RELU = 2 };
 enum { EPI_BIAS = 0, EPI_BIAS_RELU = 1, EPI_MASK = 2 };
@@ -84,12 +113,202 @@ __device__ __forceinline__ float in_stage(float v, float s, float t,
   return v;
 }
 
-// One thread's 2x2 input neighbourhood of one pixel: its offset in x and
-// which of the four taps lie inside the image.  Offsets are 32-bit: the
-// host entry points refuse tensors of 2^31 elements or more.
+// (hi, lo) = (tf32(a), tf32(a - hi)), round to nearest, ties away.
+__device__ __forceinline__ float2 split_tf32(float a) {
+  uint32_t hi, lo;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+  return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// asynchronous copies to shared memory; zero fill when !valid (src is then
+// not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Shared-memory writes of the threads -> reads of the tensor cores' async
+// proxy (before the barrier that publishes them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Operand tiles in shared memory are K-major with the 64-byte swizzle: a
+// row holds a stage's 16 k (64 bytes, four 16-byte chunks), 8 rows form a
+// 512-byte atom, and chunk c of row r sits at position c ^ ((r >> 1) & 3),
+// so that the tensor cores' reads and the producers' 16-byte stores of 8
+// consecutive rows hit every bank once.  Offset in floats of (row, k):
+__device__ __forceinline__ int op_offset(int row, int k) {
+  const int r = row & 7;
+  return (row >> 3) * 128 + r * 16 + (((k >> 2) ^ (r >> 1)) & 3) * 4 +
+         (k & 3);
+}
+
+// wgmma matrix descriptor of such a tile (512-byte aligned): start
+// address, stride byte offset 512 B between 8-row atoms, 64-byte swizzle.
+// The second 8-deep half of a stage starts 32 bytes in.
+__device__ __forceinline__ uint64_t op_desc(const float* tile) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(512 >> 4) << 32 | (uint64_t)2 << 62;
+}
+
+// d (m64 x N, fp32) = [d +] A (m64 x k8, tf32) B (N x k8, tf32)^T, both
+// operands from shared memory (descriptors), K-major; scale_d = 0 overwrites
+// d.  Accumulator layout: d[4 j + r] is row 16 warp + lane/4 + 8 (r >> 1),
+// column 8 j + 2 (lane % 4) + (r & 1).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[36], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+      "%36, %37, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[56], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "%56, %57, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[72], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, "
+      "%72, %73, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// One pixel's 2x2 input neighbourhood: its offset in x and which of the
+// four taps (0,0), (0,1), (1,0), (1,1) lie inside the image.  Offsets are
+// 32-bit: the host entry points refuse tensors of 2^31 elements or more.
 struct Taps {
   int base;                    // offset of (b, 0, iy0, ix0) in x
-  bool t0, t1, t2, t3;         // taps (0,0), (0,1), (1,0), (1,1) inside
+  int inside;                  // bit t: tap t inside the image
 
   __device__ void at(int b, int oy, int ox, int cin, int hin, int win,
                      int pad, bool valid) {
@@ -99,184 +318,490 @@ struct Taps {
     const bool r1 = valid && iy0 + 1 >= 0 && iy0 + 1 < hin;
     const bool c0 = ix0 >= 0 && ix0 < win;
     const bool c1 = ix0 + 1 >= 0 && ix0 + 1 < win;
-    t0 = r0 && c0;
-    t1 = r0 && c1;
-    t2 = r1 && c0;
-    t3 = r1 && c1;
+    inside = (r0 && c0) | (r0 && c1) << 1 | (r1 && c0) << 2 |
+             (r1 && c1) << 3;
   }
 
-  // The four taps of channel ci after the input stage, 0 outside the image
-  // or past the last channel; predicated loads, no branches.
-  __device__ void load(const float* __restrict__ x,
-                       const float* __restrict__ si,
-                       const float* __restrict__ ti, int flags, int ci,
-                       int cin, int hw, int win, float v[4]) const {
+  // Copy the four taps of channel ci (zeros outside the image or past the
+  // last channel) to dst[0], dst[step], dst[2 step], dst[3 step].
+  __device__ void copy(const float* __restrict__ x, int ci, int cin, int hw,
+                       int win, float* dst, int step) const {
     const bool ok = ci < cin;
-    float s = 1.f, t = 0.f;
-    if (flags & IN_AFFINE) {
-      s = ok ? __ldg(si + ci) : 1.f;
-      t = ok ? __ldg(ti + ci) : 0.f;
-    }
     const int o = base + ci * hw;
-    const bool p0 = ok && t0, p1 = ok && t1, p2 = ok && t2, p3 = ok && t3;
-    const float a0 = p0 ? __ldg(x + o) : 0.f;
-    const float a1 = p1 ? __ldg(x + o + 1) : 0.f;
-    const float a2 = p2 ? __ldg(x + o + win) : 0.f;
-    const float a3 = p3 ? __ldg(x + o + win + 1) : 0.f;
-    v[0] = p0 ? in_stage(a0, s, t, flags) : 0.f;
-    v[1] = p1 ? in_stage(a1, s, t, flags) : 0.f;
-    v[2] = p2 ? in_stage(a2, s, t, flags) : 0.f;
-    v[3] = p3 ? in_stage(a3, s, t, flags) : 0.f;
+    const int off[4] = {0, 1, win, win + 1};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const bool v = ok && (inside >> t & 1);
+      cp_async4(dst + t * step, v ? x + o + off[t] : x, v);
+    }
   }
 };
 
+// Block tile: TM = 128 MI rows x TN columns, TN a multiple of 8 up to 256.
+// A block is four warpgroups: two consumers (each MI m64 x TN products of
+// wgmma and their fp32 sums) and two producers (the copies and the
+// transform), THREADS threads each side.
+template <int MI_, int TN_>
+struct Cfg {
+  static constexpr int MI = MI_, TN = TN_;
+  static constexpr int TM = 128 * MI;
+  static constexpr int ACC = TN / 2;               // fp32 sums a thread, m64
+  // operand tiles of one stage, floats: A hi, A lo (TM x 16), B hi, B lo
+  static constexpr int OPA = TM * BK, OPB = TN * BK;
+  static constexpr int OP = 2 * (OPA + OPB);
+  // cp.async ring, floats a slot: A (16 x TM, row stride TM + 1); B conv
+  // (TN x 16, row stride 20) or wgrad (16 x TN, row stride TN + 1)
+  static constexpr int RA = TM + 1, RB = TN + 1, RBC = BK + 4;
+  static constexpr int RAW_A = BK * RA;
+  static constexpr int RAW_B = TN * RBC > BK * RB ? TN * RBC : BK * RB;
+  static constexpr int MAIN = 4 * (NBUF * OP + STAGES * (RAW_A + RAW_B)) +
+                              STAGES * THREADS;
+  static constexpr int OA = TM + 4;                // epilogue tile stride
+  static constexpr int EPI = 4 * TN * OA;
+  static constexpr int SMEM = MAIN > EPI ? MAIN : EPI;
+  static_assert(TN % 8 == 0 && TN <= 256, "wgmma N");
+  static_assert(SMEM <= 220 * 1024, "shared memory (+ si, ti)");
+};
+
+// 280 -> 144 + 144, 108 -> 112, 70 -> 72, 27 -> 32, 2 -> 8
+using Cfg144 = Cfg<1, 144>;
+using Cfg112 = Cfg<1, 112>;
+using Cfg72 = Cfg<2, 72>;
+using Cfg32 = Cfg<2, 32>;
+using Cfg8 = Cfg<2, 8>;
+
+// Views of the dynamic shared memory: NBUF buffers of a stage's operand
+// tiles, the cp.async ring, the wgrad tap masks, si and ti, and the
+// epilogue's output tile over the first three.
+template <class C>
+struct Smem {
+  float* op;                   // [NBUF][A hi, A lo, B hi, B lo]
+  float* raw_a;
+  float* raw_b;
+  unsigned char* mask;
+  float* out;
+  float* st;                   // si, ti (affine input stage)
+
+  __device__ explicit Smem(unsigned char* base) {
+    op = reinterpret_cast<float*>(base);
+    raw_a = op + NBUF * C::OP;
+    raw_b = raw_a + STAGES * C::RAW_A;
+    mask = reinterpret_cast<unsigned char*>(raw_b + STAGES * C::RAW_B);
+    out = reinterpret_cast<float*>(base);
+    st = reinterpret_cast<float*>(base + C::SMEM);
+  }
+  __device__ float* a_hi(int buf) const { return op + buf * C::OP; }
+  __device__ float* a_lo(int buf) const { return a_hi(buf) + C::OPA; }
+  __device__ float* b_hi(int buf) const { return a_lo(buf) + C::OPA; }
+  __device__ float* b_lo(int buf) const { return b_hi(buf) + C::OPB; }
+};
+
+// Named barriers: the producers among themselves, the consumers among
+// themselves, "operands of buffer b are ready" for each consumer
+// warpgroup (producers arrive, that warpgroup waits) and "buffer b is
+// free" (consumers arrive, producers wait).
+constexpr int BAR_PRODUCERS = 1, BAR_CONSUMERS = 2;
+__device__ __forceinline__ int bar_full(int buf, int wg) {
+  return 3 + 2 * buf + wg;
+}
+__device__ __forceinline__ int bar_empty(int buf) { return 3 + 2 * NBUF + buf; }
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// One stage's products into t (overwritten): for each 8-deep half the two
+// cross terms lo*hi' and hi*lo', then the two hi*hi' terms.
+template <class C>
+__device__ __forceinline__ void stage_products(const Smem<C>& sm, int buf,
+                                               int wg,
+                                               float (&t)[C::MI][C::ACC]) {
+  const uint64_t bh = op_desc(sm.b_hi(buf)), bl = op_desc(sm.b_lo(buf));
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi) {
+    const int row0 = (wg * C::MI + mi) * 64;
+    const uint64_t ah = op_desc(sm.a_hi(buf) + row0 * BK);
+    const uint64_t al = op_desc(sm.a_lo(buf) + row0 * BK);
+    // +32 bytes (2 in descriptor units) = the second 8-deep half
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      wgmma_tf32(t[mi], al + 2 * h, bh + 2 * h, h);
+      wgmma_tf32(t[mi], ah + 2 * h, bl + 2 * h, 1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      wgmma_tf32(t[mi], ah + 2 * h, bh + 2 * h, 1);
+  }
+}
+
+// Consumer side of out[row][col] = sum_k A[k][row] Bm[k][col] over `steps`
+// stages of 16 k: each stage's products in the tensor cores, then added
+// into fp32 registers; the result is left as the (TN, TM) tile
+// sm.out[col * OA + row].  Thread ct = threadIdx.x < THREADS.
+template <class C>
+__device__ __forceinline__ void consume(const Smem<C>& sm, int steps) {
+  const int ct = threadIdx.x, wg = ct >> 7;
+  float acc[C::MI][C::ACC], t[C::MI][C::ACC];
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+    for (int i = 0; i < C::ACC; ++i) acc[mi][i] = t[mi][i] = 0.f;
+
+  for (int kt = 0; kt < steps; ++kt) {
+    const int buf = kt % NBUF;
+    bar_sync(bar_full(buf, wg), THREADS + 128);
+    wgmma_fence();
+    stage_products<C>(sm, buf, wg, t);
+    wgmma_commit();
+    wgmma_wait_all();
+    if (kt + NBUF < steps) bar_arrive(bar_empty(buf), 2 * THREADS);
+#pragma unroll
+    for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+      for (int i = 0; i < C::ACC; ++i) acc[mi][i] += t[mi][i];
+  }
+  // the last stage's operands were read: the tile may overwrite them
+  bar_sync(BAR_CONSUMERS, THREADS);
+  const int warp = (ct >> 5) & 3, lane = ct & 31;
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+    for (int i = 0; i < C::ACC; ++i) {
+      const int row = (wg * C::MI + mi) * 64 + warp * 16 + (lane >> 2) +
+                      ((i >> 1) & 1) * 8;
+      const int col = (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+      sm.out[col * C::OA + row] = acc[mi][i];
+    }
+  bar_sync(BAR_CONSUMERS, THREADS);
+}
+
+// Producer side: the loader copies a stage into the ring (issue) and
+// writes its split operand tiles into buffer kt % NBUF (transform), up to
+// NBUF stages ahead of the consumers.  A stage's raw copies are complete
+// and published by the producers' barrier before any producer transforms
+// it (a thread may transform what another copied).  Each stage's copies
+// are issued after the fence that publishes the previous tiles: the fence
+// waits for the thread's copies in flight.
+template <class C, class Loader>
+__device__ __forceinline__ void produce(Loader& ld, const Smem<C>& sm,
+                                        int steps) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) ld.issue(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    bar_sync(BAR_PRODUCERS, THREADS);
+    const int buf = kt % NBUF;
+    if (kt >= NBUF) bar_sync(bar_empty(buf), 2 * THREADS);
+    ld.transform(kt, kt % STAGES, buf);
+    fence_proxy_async();
+    bar_arrive(bar_full(buf, 0), THREADS + 128);
+    bar_arrive(bar_full(buf, 1), THREADS + 128);
+    // after the fence: it waits for this thread's copies in flight, and
+    // the newest of those are now one stage old
+    if (kt + STAGES - 1 < steps)
+      ld.issue(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ void store_split4(float* hi, float* lo, int off,
+                                             const float (&v)[4]) {
+  float4 h, l;
+  float2 s = split_tf32(v[0]);
+  h.x = s.x; l.x = s.y;
+  s = split_tf32(v[1]);
+  h.y = s.x; l.y = s.y;
+  s = split_tf32(v[2]);
+  h.z = s.x; l.z = s.y;
+  s = split_tf32(v[3]);
+  h.w = s.x; l.w = s.y;
+  *reinterpret_cast<float4*>(hi + off) = h;
+  *reinterpret_cast<float4*>(lo + off) = l;
+}
+
+// conv2x2 operands: rows are pixels, k = ci*4 + tap, a stage is 4 input
+// channels.  Producer thread pt copies and transforms the 4 taps (one
+// 16-byte chunk of k) of pixel pt % TM in channels pt / TM + TPP j.  The
+// weight tile (TN x 16 k of the K-major (N, 4 Cin) weight) is copied 16
+// bytes a thread with k fastest (coalesced) and transformed with n fastest
+// (conflict-free).
+template <class C>
+struct ConvLoader {
+  static constexpr int TPP = THREADS / C::TM;        // threads per pixel
+  static constexpr int CPT = 4 / TPP;                // channels a thread
+  static constexpr int WPT = (4 * C::TN + THREADS - 1) / THREADS;
+  const Smem<C>& sm;
+  const float* __restrict__ x;
+  const float* __restrict__ w;
+  int flags, cin, hw, win, n_out, n0, pt, row, c0;
+  Taps taps;
+
+  __device__ void issue(int kt, int slot) const {
+    float* ra = sm.raw_a + slot * C::RAW_A;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = c0 + TPP * j;
+      taps.copy(x, kt * 4 + c, cin, hw, win, ra + c * 4 * C::RA + row, C::RA);
+    }
+    float* rb = sm.raw_b + slot * C::RAW_B;
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) {
+      const int e = pt + i * THREADS;
+      if (e >= 4 * C::TN) break;
+      const int n = e >> 2, c = e & 3;
+      const bool ok = kt * 4 + c < cin && n0 + n < n_out;
+      cp_async16(rb + n * C::RBC + c * 4,
+                 ok ? w + (long long)(n0 + n) * 4 * cin + kt * BK + c * 4 : w,
+                 ok);
+    }
+  }
+
+  __device__ void transform(int kt, int slot, int buf) const {
+    const float* ra = sm.raw_a + slot * C::RAW_A;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = c0 + TPP * j, ci = kt * 4 + c;
+      const bool ok = ci < cin;
+      float s = 1.f, t = 0.f;
+      if ((flags & IN_AFFINE) && ok) {
+        s = sm.st[ci];
+        t = sm.st[cin + ci];
+      }
+      float v[4];
+#pragma unroll
+      for (int tap = 0; tap < 4; ++tap) {
+        const bool in = ok && (taps.inside >> tap & 1);
+        v[tap] = in ? in_stage(ra[(c * 4 + tap) * C::RA + row], s, t, flags)
+                    : 0.f;
+      }
+      store_split4(sm.a_hi(buf), sm.a_lo(buf), op_offset(row, c * 4), v);
+    }
+    const float* rb = sm.raw_b + slot * C::RAW_B;
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) {
+      const int e = pt + i * THREADS;
+      if (e >= 4 * C::TN) break;
+      const int n = e % C::TN, c = e / C::TN;
+      const float4 q = *reinterpret_cast<const float4*>(rb + n * C::RBC +
+                                                        c * 4);
+      const float v[4] = {q.x, q.y, q.z, q.w};
+      store_split4(sm.b_hi(buf), sm.b_lo(buf), op_offset(n, c * 4), v);
+    }
+  }
+};
+
+// wgrad operands: rows are the im2col columns (ci, tap) from k0, k the
+// pixels of the chunk, 16 a stage.  Producer thread pt copies pixel lane
+// pt % 16 of channels pt / 16 + 16 j and of gradient channels pt / 16 +
+// 16 i; its tap mask for each slot waits in sm.mask until the transform.
+template <class C>
+struct WgradLoader {
+  static constexpr int APT = C::TM / 64;             // channels a thread
+  static constexpr int GPT = (C::TN + 15) / 16;
+  const Smem<C>& sm;
+  const float* __restrict__ g;
+  const float* __restrict__ x;
+  int flags, cin, hin, win, ho, wo, n_out, n0, k0, pad, pt, p, q;
+  long long m, m_end;
+  int b, oy, ox;
+
+  __device__ void issue(int, int slot) {
+    const bool pv = m < m_end;
+    Taps taps;
+    taps.at(b, oy, ox, cin, hin, win, pad, pv);
+    sm.mask[slot * THREADS + pt] = (unsigned char)taps.inside;
+    float* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
+#pragma unroll
+    for (int j = 0; j < APT; ++j) {
+      const int c = q + 16 * j;
+      taps.copy(x, k0 / 4 + c, cin, hin * win, win, ra + c * 4, 1);
+    }
+    float* rb = sm.raw_b + slot * C::RAW_B + p * C::RB;
+    const int hwo = ho * wo;
+    const long long gbase = (long long)b * n_out * hwo + oy * wo + ox;
+#pragma unroll
+    for (int i = 0; i < GPT; ++i) {
+      const int n = q + 16 * i;
+      if (n >= C::TN) break;
+      const bool ok = pv && n0 + n < n_out;
+      cp_async4(rb + n, ok ? g + gbase + (long long)(n0 + n) * hwo : g, ok);
+    }
+    // this thread's pixel of the next stage
+    m += BK;
+    ox += BK;
+    while (ox >= wo) {
+      ox -= wo;
+      if (++oy == ho) {
+        oy = 0;
+        ++b;
+      }
+    }
+  }
+
+  __device__ void transform(int, int slot, int buf) const {
+    const int inside = sm.mask[slot * THREADS + pt];
+    const float* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
+    float* ahi = sm.a_hi(buf);
+    float* alo = sm.a_lo(buf);
+#pragma unroll
+    for (int j = 0; j < APT; ++j) {
+      const int c = q + 16 * j, ci = k0 / 4 + c;
+      const bool ok = ci < cin;
+      float s = 1.f, t = 0.f;
+      if ((flags & IN_AFFINE) && ok) {
+        s = sm.st[ci];
+        t = sm.st[cin + ci];
+      }
+#pragma unroll
+      for (int tap = 0; tap < 4; ++tap) {
+        const bool in = ok && (inside >> tap & 1);
+        const float2 z =
+            split_tf32(in ? in_stage(ra[c * 4 + tap], s, t, flags) : 0.f);
+        const int off = op_offset(c * 4 + tap, p);
+        ahi[off] = z.x;
+        alo[off] = z.y;
+      }
+    }
+    const float* rb = sm.raw_b + slot * C::RAW_B + p * C::RB;
+    float* bhi = sm.b_hi(buf);
+    float* blo = sm.b_lo(buf);
+#pragma unroll
+    for (int i = 0; i < GPT; ++i) {
+      const int n = q + 16 * i;
+      if (n >= C::TN) break;
+      const float2 z = split_tf32(rb[n]);
+      const int off = op_offset(n, p);
+      bhi[off] = z.x;
+      blo[off] = z.y;
+    }
+  }
+};
+
+// si, ti into shared memory, read by every stage's transform.
+template <class C>
+__device__ __forceinline__ void stage_affine(const Smem<C>& sm,
+                                             const float* __restrict__ si,
+                                             const float* __restrict__ ti,
+                                             int flags, int cin) {
+  if (flags & IN_AFFINE)
+    for (int i = threadIdx.x; i < cin; i += 2 * THREADS) {
+      sm.st[i] = __ldg(si + i);
+      sm.st[cin + i] = __ldg(ti + i);
+    }
+  __syncthreads();
+}
+
 // out (B, N, Ho, Wo) = conv2x2(in_stage(x), pad) with x (B, Cin, Hin, Win),
-// Ho = Hin + 2 pad - 1; wt is the (4 Cin, N) GEMM weight, k = ci*4 + tap.
-// A block owns TM pixels x TN output channels with 16 * TN / RN threads;
-// each thread keeps 8 pixels x RN channels of sums.
-template <int TN, int RN>
-__global__ void __launch_bounds__(16 * TN / RN, 2)
+// Ho = Hin + 2 pad - 1; w is the K-major (N, 4 Cin) GEMM weight (OIHW
+// flattened), k = ci*4 + tap.
+template <class C>
+__global__ void __launch_bounds__(2 * THREADS, 1)
 conv2x2_kernel(const float* __restrict__ x, const float* __restrict__ si,
                const float* __restrict__ ti, int flags,
-               const float* __restrict__ wt, const float* __restrict__ bias,
+               const float* __restrict__ w, const float* __restrict__ bias,
                const float* __restrict__ mask, float* __restrict__ out,
                int B, int cin, int hin, int win, int n_out, int pad,
                int epi) {
-  constexpr int NT = 16 * TN / RN;
-  constexpr int CH = BK / 4;                        // input channels a step
-  constexpr int A_SLOTS = (TM * CH + NT - 1) / NT;  // (pixel, channel) loads
-  constexpr int W_ROWS = NT / TN;                   // weight rows a pass
-  constexpr int W_PER = BK / W_ROWS;
-  static_assert(NT % TN == 0 && BK % W_ROWS == 0, "weight tile split");
-  __shared__ __align__(16) float As[2][BK][TM];
-  __shared__ __align__(16) float Ws[2][BK][TN];
-
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Smem<C> sm(smem);
+  stage_affine<C>(sm, si, ti, flags, cin);
   const int ho = hin + 2 * pad - 1, wo = win + 2 * pad - 1;
   const int hwo = ho * wo;
   const long long M = (long long)B * hwo;
-  const int K = 4 * cin;
-  const long long m0 = (long long)blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
+  const long long m0 = (long long)blockIdx.x * C::TM;
+  const int n0 = blockIdx.y * C::TN;
+  const int steps = (cin + 3) / 4;
+  const bool consumer = threadIdx.x < THREADS;
+  const int row = threadIdx.x % C::TM;
 
-  // load slots: slot s = tid + i*NT is pixel s % TM of channel s / TM of
-  // the step; each loads that pixel's 2x2 neighbourhood
-  Taps taps[A_SLOTS];
-  int slot_m[A_SLOTS], slot_c[A_SLOTS];
-#pragma unroll
-  for (int i = 0; i < A_SLOTS; ++i) {
-    const int sl = tid + i * NT;
-    slot_m[i] = sl % TM;
-    slot_c[i] = sl < TM * CH ? sl / TM : CH;       // CH: no slot
-    const long long m = m0 + slot_m[i];
-    const bool valid = m < M && slot_c[i] < CH;
-    int b = 0, oy = 0, ox = 0;
-    if (valid) {
-      b = (int)(m / hwo);
-      const int r = (int)(m - (long long)b * hwo);
-      oy = r / wo;
-      ox = r - oy * wo;
-    }
-    taps[i].at(b, oy, ox, cin, hin, win, pad, valid);
+  // this thread's pixel (producers: staging; consumers: epilogue)
+  const long long m = m0 + row;
+  const bool valid = m < M;
+  int b = 0, r = 0;
+  if (valid) {
+    b = (int)(m / hwo);
+    r = (int)(m - (long long)b * hwo);
   }
-
-  // weight load slots: column n_w of the tile, rows kk_w + i * W_ROWS
-  const int n_w = tid % TN, kk_w = tid / TN;
-  const bool ok_w = n0 + n_w < n_out;
-  const int hw = hin * win;
-
-  float a_reg[A_SLOTS][4];
-  float w_reg[W_PER];
-  auto load = [&](int kt) {
-#pragma unroll
-    for (int i = 0; i < A_SLOTS; ++i)
-      taps[i].load(x, si, ti, flags, kt * CH + slot_c[i], cin, hw, win,
-                   a_reg[i]);
-    const int k = kt * BK + kk_w;
-    const float* wp = wt + k * n_out + n0 + n_w;
-#pragma unroll
-    for (int i = 0; i < W_PER; ++i)
-      w_reg[i] = (ok_w && k + i * W_ROWS < K)
-                     ? __ldg(wp + i * W_ROWS * n_out) : 0.f;
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < A_SLOTS; ++i)
-      if (slot_c[i] < CH)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          As[buf][slot_c[i] * 4 + j][slot_m[i]] = a_reg[i][j];
-#pragma unroll
-    for (int i = 0; i < W_PER; ++i) Ws[buf][kk_w + i * W_ROWS][n_w] = w_reg[i];
-  };
-
-  // compute slot: pixels tm*4 + {0..3} and 64 + tm*4 + {0..3} (conflict-free
-  // float4 reads), channels tn*RN + {0..RN-1}
-  const int tm = tid & 15, tn = tid >> 4;
-  float acc[8][RN];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-
-  const int KT = (cin + CH - 1) / CH;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < KT) load(kt + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][tm * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + tm * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float w[RN];
-      if constexpr (RN % 4 == 0) {
-#pragma unroll
-        for (int q = 0; q < RN / 4; ++q) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&Ws[buf][kk][tn * RN + 4 * q]);
-          w[4 * q] = v.x; w[4 * q + 1] = v.y;
-          w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
-        }
-      } else if constexpr (RN == 2) {
-        const float2 v = *reinterpret_cast<const float2*>(&Ws[buf][kk][tn * 2]);
-        w[0] = v.x; w[1] = v.y;
-      } else {
-        w[0] = Ws[buf][kk][tn];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    if (kt + 1 < KT) store(buf ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i < 4 ? tm * 4 + i : 64 + tm * 4 + (i - 4));
-    if (m >= M) continue;
-    const int b = (int)(m / hwo);
-    const int r = (int)(m - (long long)b * hwo);
+  if (consumer) {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume<C>(sm, steps);
+    if (!valid) return;
     const long long obase = (long long)b * n_out * hwo + r;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int n = n0 + tn * RN + j;
-      if (n >= n_out) continue;
-      const long long o = obase + (long long)n * hwo;
-      float v = acc[i][j];
+    for (int n = threadIdx.x / C::TM; n < C::TN; n += THREADS / C::TM) {
+      if (n0 + n >= n_out) break;
+      const long long o = obase + (long long)(n0 + n) * hwo;
+      float v = sm.out[n * C::OA + row];
       if (epi == EPI_MASK) {
         v = __ldg(mask + o) > 0.f ? v : 0.f;
       } else {
-        if (bias != nullptr) v += __ldg(bias + n);
+        if (bias != nullptr) v += __ldg(bias + n0 + n);
         if (epi == EPI_BIAS_RELU) v = fmaxf(v, 0.f);
       }
       out[o] = v;
     }
+  } else {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int pt = threadIdx.x - THREADS;
+    const int oy = r / wo, ox = r - oy * wo;
+    ConvLoader<C> ld{sm, x, w, flags, cin, hin * win, win, n_out, n0, pt,
+                     row, pt / C::TM, {}};
+    ld.taps.at(b, oy, ox, cin, hin, win, pad, valid);
+    produce<C>(ld, sm, steps);
+  }
+}
+
+// Weight gradient of one conv2x2: part[chunk][n][k] = sum over the chunk's
+// pixels m of g[b, n, oy, ox] * A[k][m], A the implicit im2col of
+// in_stage(x) with the conv's pad (as in conv2x2_kernel).
+template <class C>
+__global__ void __launch_bounds__(2 * THREADS, 1)
+wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
+             const float* __restrict__ si, const float* __restrict__ ti,
+             int flags, float* __restrict__ part, int B, int cin, int hin,
+             int win, int n_out, int pad, long long chunk_len) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Smem<C> sm(smem);
+  stage_affine<C>(sm, si, ti, flags, cin);
+  const int ho = hin + 2 * pad - 1, wo = win + 2 * pad - 1;
+  const int hwo = ho * wo;
+  const long long M = (long long)B * hwo;
+  const int K = 4 * cin;
+  const int k0 = blockIdx.x * C::TM, n0 = blockIdx.y * C::TN;
+  const long long m_begin = (long long)blockIdx.z * chunk_len;
+  const long long m_end = m_begin + chunk_len < M ? m_begin + chunk_len : M;
+  const int steps = (int)((m_end - m_begin + BK - 1) / BK);
+
+  if (threadIdx.x < THREADS) {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume<C>(sm, steps);
+    const int row = threadIdx.x % C::TM, k = k0 + row;
+    if (k >= K) return;
+    float* dst = part + (long long)blockIdx.z * n_out * K + k;
+    for (int n = threadIdx.x / C::TM; n < C::TN; n += THREADS / C::TM) {
+      if (n0 + n >= n_out) break;
+      dst[(long long)(n0 + n) * K] = sm.out[n * C::OA + row];
+    }
+  } else {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int pt = threadIdx.x - THREADS;
+    WgradLoader<C> ld{sm, g, x, flags, cin, hin, win, ho, wo, n_out, n0, k0,
+                      pad, pt, pt % 16, pt / 16, m_begin + pt % 16, m_end,
+                      0, 0, 0};
+    if (ld.m < M) {
+      ld.b = (int)(ld.m / hwo);
+      const int r = (int)(ld.m - (long long)ld.b * hwo);
+      ld.oy = r / wo;
+      ld.ox = r - ld.oy * wo;
+    }
+    produce<C>(ld, sm, steps);
   }
 }
 
@@ -350,205 +875,86 @@ plane_kernel(const float* __restrict__ t, const float* __restrict__ u,
   }
 }
 
-// out[j] = sum_{s < S} part[s * L + j], s in order.
+// out[j] = sum_{s < S} part[s * L + j], s in order, summed in fp64 (the
+// partials of a 590k-pixel sum are large and alike: an fp32 running sum
+// would round each addition at the total's scale).
 __global__ void __launch_bounds__(THREADS)
 sum_rows_kernel(const float* __restrict__ part, int S, long long L,
                 float* __restrict__ out) {
   const long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (j >= L) return;
-  float s = 0.f;
+  double s = 0.0;
   for (int k = 0; k < S; ++k) s += __ldg(part + (long long)k * L + j);
-  out[j] = s;
-}
-
-// Weight gradient of one conv2x2: part[chunk][n][k] = sum over the chunk's
-// pixels m of g[b, n, oy, ox] * A[k][m], A the implicit im2col of
-// in_stage(x) with the conv's pad (as in conv2x2_kernel).  A block owns WN
-// output channels x WK GEMM columns with 16 * WN / RN threads; each thread
-// keeps RN channels x 8 columns of sums.
-template <int WN, int RN>
-__global__ void __launch_bounds__(16 * WN / RN, 2)
-wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
-             const float* __restrict__ si, const float* __restrict__ ti,
-             int flags, float* __restrict__ part, int B, int cin, int hin,
-             int win, int n_out, int pad, long long chunk_len) {
-  constexpr int NT = 16 * WN / RN;
-  constexpr int ROWS = WN / RN;                     // thread rows
-  constexpr int A_SLOTS = (WK / 4 + ROWS - 1) / ROWS;
-  __shared__ __align__(16) float Gs[2][WS][WN + 4];
-  __shared__ __align__(16) float As[2][WS][WK + 4];
-
-  const int tid = threadIdx.x;
-  const int ho = hin + 2 * pad - 1, wo = win + 2 * pad - 1;
-  const int hwo = ho * wo;
-  const long long M = (long long)B * hwo;
-  const int K = 4 * cin;
-  const int k0 = blockIdx.x * WK, n0 = blockIdx.y * WN;
-  const long long m_begin = (long long)blockIdx.z * chunk_len;
-  const long long m_end = m_begin + chunk_len < M ? m_begin + chunk_len : M;
-
-  // load slot: pixel lane lp of each step; G rows rg + ROWS j (j < RN), A
-  // channels rg + ROWS i (i < A_SLOTS, below WK / 4) with their 4 taps
-  const int lp = tid & 15, rg = tid >> 4;
-  long long m = m_begin + lp;
-  int b = 0, oy = 0, ox = 0;
-  if (m < M) {
-    b = (int)(m / hwo);
-    const int r = (int)(m - (long long)b * hwo);
-    oy = r / wo;
-    ox = r - oy * wo;
-  }
-
-  float g_reg[RN], a_reg[A_SLOTS][4];
-  auto load = [&]() {
-    const bool valid = m < m_end;
-    const long long gbase = (long long)b * n_out * hwo + (long long)oy * wo + ox;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int n = n0 + rg + ROWS * j;
-      g_reg[j] = (valid && n < n_out)
-                     ? __ldg(g + gbase + (long long)n * hwo) : 0.f;
-    }
-    Taps taps;
-    taps.at(b, oy, ox, cin, hin, win, pad, valid);
-#pragma unroll
-    for (int i = 0; i < A_SLOTS; ++i) {
-      const int c = rg + ROWS * i;
-      if (c < WK / 4)
-        taps.load(x, si, ti, flags, k0 / 4 + c, cin, hin * win, win,
-                  a_reg[i]);
-    }
-    // advance this thread's pixel by one step
-    m += WS;
-    ox += WS;
-    while (ox >= wo) {
-      ox -= wo;
-      if (++oy == ho) {
-        oy = 0;
-        ++b;
-      }
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < RN; ++j) Gs[buf][lp][rg + ROWS * j] = g_reg[j];
-#pragma unroll
-    for (int i = 0; i < A_SLOTS; ++i) {
-      const int c = rg + ROWS * i;
-      if (c < WK / 4)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) As[buf][lp][c * 4 + t] = a_reg[i][t];
-    }
-  };
-
-  // compute slot: channels ty*RN + {0..RN-1}, columns tx*4 + {0..3} and
-  // 64 + tx*4 + {0..3}
-  const int tx = tid & 15, ty = tid >> 4;
-  float acc[RN][8];
-#pragma unroll
-  for (int i = 0; i < RN; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const long long steps = (m_end - m_begin + WS - 1) / WS;
-  if (steps > 0) {
-    load();
-    store(0);
-  }
-  __syncthreads();
-  for (long long s = 0; s < steps; ++s) {
-    const int buf = (int)(s & 1);
-    if (s + 1 < steps) load();
-#pragma unroll
-    for (int p = 0; p < WS; ++p) {
-      float gg[RN];
-      if constexpr (RN % 4 == 0) {
-#pragma unroll
-        for (int q = 0; q < RN / 4; ++q) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&Gs[buf][p][ty * RN + 4 * q]);
-          gg[4 * q] = v.x; gg[4 * q + 1] = v.y;
-          gg[4 * q + 2] = v.z; gg[4 * q + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < RN; ++q) gg[q] = Gs[buf][p][ty * RN + q];
-      }
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][p][tx * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][p][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int i = 0; i < RN; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(gg[i], a[j], acc[i][j]);
-    }
-    if (s + 1 < steps) store(buf ^ 1);
-    __syncthreads();
-  }
-
-  const long long L = (long long)n_out * K;
-  float* dst = part + (long long)blockIdx.z * L;
-#pragma unroll
-  for (int i = 0; i < RN; ++i) {
-    const int n = n0 + ty * RN + i;
-    if (n >= n_out) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (k < K) dst[(long long)n * K + k] = acc[i][j];
-    }
-  }
+  out[j] = (float)s;
 }
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// Output channels per block: 96 (8 a thread) or 64 (4 a thread), whichever
-// pads n_out less, and narrower tiles for narrow outputs.
-int channel_tile(int n_out, bool narrow) {
-  if (n_out <= 16) return 16;
-  if (narrow && n_out <= 32) return 32;
-  return ceil_div(n_out, 96) * 96 <= ceil_div(n_out, 64) * 64 ? 96 : 64;
+// The block tile for n_out output channels: the narrowest that holds them
+// (wider outputs take 144-column tiles).
+enum Tile { TILE8, TILE32, TILE72, TILE112, TILE144 };
+
+Tile pick_tile(int n_out) {
+  return n_out <= 8 ? TILE8 : n_out <= 32 ? TILE32 : n_out <= 72 ? TILE72
+                            : n_out <= 112 ? TILE112 : TILE144;
 }
 
-template <int TN, int RN>
-void launch_conv(const float* x, const float* si, const float* ti, int flags,
-                 const float* wt, const float* bias, const float* mask,
-                 float* out, int B, int cin, int hin, int win, int n_out,
-                 int pad, int epi, unsigned gx, cudaStream_t st) {
-  conv2x2_kernel<TN, RN><<<dim3(gx, ceil_div(n_out, TN)), 16 * TN / RN, 0,
-                           st>>>(x, si, ti, flags, wt, bias, mask, out, B,
-                                 cin, hin, win, n_out, pad, epi);
-}
+struct TileShape {
+  int tm, tn;
+};
 
-cudaError_t conv2x2(const float* x, const float* si, const float* ti,
-                    int flags, const float* wt, const float* bias,
-                    const float* mask, float* out, int B, int cin, int hin,
-                    int win, int n_out, int pad, int epi, cudaStream_t st) {
-  const long long M = (long long)B * (hin + 2 * pad - 1) * (win + 2 * pad - 1);
-  const unsigned gx = (unsigned)ceil_div(M, TM);
-  switch (channel_tile(n_out, true)) {
-    case 16:
-      launch_conv<16, 1>(x, si, ti, flags, wt, bias, mask, out, B, cin, hin,
-                         win, n_out, pad, epi, gx, st);
-      break;
-    case 32:
-      launch_conv<32, 2>(x, si, ti, flags, wt, bias, mask, out, B, cin, hin,
-                         win, n_out, pad, epi, gx, st);
-      break;
-    case 64:
-      launch_conv<64, 4>(x, si, ti, flags, wt, bias, mask, out, B, cin, hin,
-                         win, n_out, pad, epi, gx, st);
-      break;
-    default:
-      launch_conv<96, 8>(x, si, ti, flags, wt, bias, mask, out, B, cin, hin,
-                         win, n_out, pad, epi, gx, st);
+TileShape tile_shape(int n_out) {
+  switch (pick_tile(n_out)) {
+    case TILE8: return {Cfg8::TM, Cfg8::TN};
+    case TILE32: return {Cfg32::TM, Cfg32::TN};
+    case TILE72: return {Cfg72::TM, Cfg72::TN};
+    case TILE112: return {Cfg112::TM, Cfg112::TN};
+    default: return {Cfg144::TM, Cfg144::TN};
   }
+}
+
+template <class C>
+cudaError_t launch_conv(const float* x, const float* si, const float* ti,
+                        int flags, const float* w, const float* bias,
+                        const float* mask, float* out, int B, int cin,
+                        int hin, int win, int n_out, int pad, int epi,
+                        cudaStream_t st) {
+  // + si, ti; past ~7k channels the card refuses it (no int overflow)
+  const int smem = C::SMEM + 8 * (cin < (1 << 20) ? cin : 1 << 20);
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv2x2_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();          // returned here: not left for a later check
+    return e;
+  }
+  const long long M = (long long)B * (hin + 2 * pad - 1) * (win + 2 * pad - 1);
+  const dim3 grid(ceil_div(M, C::TM), ceil_div(n_out, C::TN));
+  conv2x2_kernel<C><<<grid, 2 * THREADS, smem, st>>>(
+      x, si, ti, flags, w, bias, mask, out, B, cin, hin, win, n_out, pad,
+      epi);
   return cudaGetLastError();
 }
 
+cudaError_t conv2x2(const float* x, const float* si, const float* ti,
+                    int flags, const float* w, const float* bias,
+                    const float* mask, float* out, int B, int cin, int hin,
+                    int win, int n_out, int pad, int epi, cudaStream_t st) {
+#define MMLF_CONV(CFG)                                                      \
+  return launch_conv<CFG>(x, si, ti, flags, w, bias, mask, out, B, cin, hin, \
+                          win, n_out, pad, epi, st)
+  switch (pick_tile(n_out)) {
+    case TILE8: MMLF_CONV(Cfg8);
+    case TILE32: MMLF_CONV(Cfg32);
+    case TILE72: MMLF_CONV(Cfg72);
+    case TILE112: MMLF_CONV(Cfg112);
+    default: MMLF_CONV(Cfg144);
+  }
+#undef MMLF_CONV
+}
+
 // Pixel chunking of one weight gradient: enough blocks to fill the card,
-// chunks a multiple of WS pixels long.
+// chunks a multiple of BK pixels long and at most WGRAD_MAX_CHUNK.
 struct Chunks {
   long long len;
   int count;
@@ -556,26 +962,38 @@ struct Chunks {
 
 Chunks wgrad_chunks(int B, int cin, int hin, int win, int n_out, int pad) {
   const long long M = (long long)B * (hin + 2 * pad - 1) * (win + 2 * pad - 1);
-  const int wn = channel_tile(n_out, false);
-  const int tiles = ceil_div(n_out, wn) * ceil_div(4 * cin, WK);
+  const TileShape t = tile_shape(n_out);
+  const int tiles = ceil_div(4 * cin, t.tm) * ceil_div(n_out, t.tn);
   long long want = ceil_div(WGRAD_TARGET_BLOCKS, tiles);
-  const long long most = ceil_div(M, 16 * WS);
+  if (want < ceil_div(M, WGRAD_MAX_CHUNK)) want = ceil_div(M, WGRAD_MAX_CHUNK);
+  const long long most = ceil_div(M, 16 * BK);
   if (want > most) want = most;
   if (want < 1) want = 1;
   Chunks c;
-  c.len = (long long)ceil_div(ceil_div(M, want), WS) * WS;
+  c.len = (long long)ceil_div(ceil_div(M, want), BK) * BK;
   c.count = ceil_div(M, c.len);
   return c;
 }
 
-template <int WN, int RN>
-void launch_wgrad(const float* g, const float* x, const float* si,
-                  const float* ti, int flags, float* part, int B, int cin,
-                  int hin, int win, int n_out, int pad, Chunks ch,
-                  cudaStream_t st) {
-  const dim3 grid(ceil_div(4 * cin, WK), ceil_div(n_out, WN), ch.count);
-  wgrad_kernel<WN, RN><<<grid, 16 * WN / RN, 0, st>>>(
+template <class C>
+cudaError_t launch_wgrad(const float* g, const float* x, const float* si,
+                         const float* ti, int flags, float* part, int B,
+                         int cin, int hin, int win, int n_out, int pad,
+                         Chunks ch, cudaStream_t st) {
+  // + si, ti; past ~7k channels the card refuses it (no int overflow)
+  const int smem = C::SMEM + 8 * (cin < (1 << 20) ? cin : 1 << 20);
+  const cudaError_t e = cudaFuncSetAttribute(
+      wgrad_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();          // returned here: not left for a later check
+    return e;
+  }
+  const dim3 grid(ceil_div(4 * cin, C::TM), ceil_div(n_out, C::TN),
+                  ch.count);
+  wgrad_kernel<C><<<grid, 2 * THREADS, smem, st>>>(
       g, x, si, ti, flags, part, B, cin, hin, win, n_out, pad, ch.len);
+  return cudaGetLastError();
 }
 
 cudaError_t wgrad(const float* g, const float* x, const float* si,
@@ -583,20 +1001,18 @@ cudaError_t wgrad(const float* g, const float* x, const float* si,
                   int cin, int hin, int win, int n_out, int pad,
                   cudaStream_t st) {
   const Chunks ch = wgrad_chunks(B, cin, hin, win, n_out, pad);
-  switch (channel_tile(n_out, false)) {
-    case 16:
-      launch_wgrad<16, 1>(g, x, si, ti, flags, part, B, cin, hin, win, n_out,
-                          pad, ch, st);
-      break;
-    case 64:
-      launch_wgrad<64, 4>(g, x, si, ti, flags, part, B, cin, hin, win, n_out,
-                          pad, ch, st);
-      break;
-    default:
-      launch_wgrad<96, 8>(g, x, si, ti, flags, part, B, cin, hin, win, n_out,
-                          pad, ch, st);
+#define MMLF_WGRAD(CFG)                                                    \
+  launch_wgrad<CFG>(g, x, si, ti, flags, part, B, cin, hin, win, n_out, pad, \
+                    ch, st)
+  cudaError_t err;
+  switch (pick_tile(n_out)) {
+    case TILE8: err = MMLF_WGRAD(Cfg8); break;
+    case TILE32: err = MMLF_WGRAD(Cfg32); break;
+    case TILE72: err = MMLF_WGRAD(Cfg72); break;
+    case TILE112: err = MMLF_WGRAD(Cfg112); break;
+    default: err = MMLF_WGRAD(Cfg144);
   }
-  cudaError_t err = cudaGetLastError();
+#undef MMLF_WGRAD
   if (err != cudaSuccess) return err;
   const long long L = (long long)n_out * 4 * cin;
   sum_rows_kernel<<<ceil_div(L, THREADS), THREADS, 0, st>>>(part, ch.count, L,
@@ -640,12 +1056,12 @@ long long mmlf_conv_block_wgrad_scratch(int B, int cin, int H, int W,
   return wgrad_scratch(B, cin, H, W, cout);
 }
 
-// Forward.  x (B, Cin, H, W); si, ti (Cin) (read only with affine_in); w1t
-// (4 Cin, Cout) and w2t (4 Cout, Cout) GEMM weights (OIHW flattened and
-// transposed); b1, b2 (Cout).  Writes y1 (B, Cout, H+1, W+1, scratch), y2
+// Forward.  x (B, Cin, H, W); si, ti (Cin) (read only with affine_in); w1
+// (Cout, 4 Cin) and w2 (Cout, 4 Cout) GEMM weights (OIHW flattened: K-major,
+// k = ci*4 + tap); b1, b2 (Cout).  Writes y1 (B, Cout, H+1, W+1, scratch), y2
 // (B, Cout, H, W), part (2 B Cout, scratch), ps and pss (Cout).
 int mmlf_conv_block_fwd(const float* x, const float* si, const float* ti,
-                        const float* w1t, const float* b1, const float* w2t,
+                        const float* w1, const float* b1, const float* w2,
                         const float* b2, float* y1, float* y2, float* part,
                         float* ps, float* pss, int B, int cin, int H, int W,
                         int cout, int relu_in, int affine_in, int device,
@@ -654,9 +1070,9 @@ int mmlf_conv_block_fwd(const float* x, const float* si, const float* ti,
   MMLF_TRY(cudaSetDevice(device));
   const cudaStream_t st = (cudaStream_t)stream;
   const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
-  MMLF_TRY(conv2x2(x, si, ti, flags, w1t, b1, nullptr, y1, B, cin, H, W,
+  MMLF_TRY(conv2x2(x, si, ti, flags, w1, b1, nullptr, y1, B, cin, H, W,
                    cout, 1, EPI_BIAS_RELU, st));
-  MMLF_TRY(conv2x2(y1, nullptr, nullptr, 0, w2t, b2, nullptr, y2, B, cout,
+  MMLF_TRY(conv2x2(y1, nullptr, nullptr, 0, w2, b2, nullptr, y2, B, cout,
                    H + 1, W + 1, cout, 0, EPI_BIAS, st));
   plane_kernel<PLANE_STATS><<<dim3(cout, B), THREADS, 0, st>>>(
       y2, nullptr, nullptr, nullptr, 0, nullptr, part, B, cout, H * W);
@@ -666,16 +1082,16 @@ int mmlf_conv_block_fwd(const float* x, const float* si, const float* ti,
   return (int)cudaSuccess;
 }
 
-// Backward.  Inputs as the forward's, plus w1dgt (4 Cout, Cin) and w2dgt
-// (4 Cout, Cout), the GEMM weights of the two dgrad convs (kernels flipped
-// in space, in/out swapped); y2, dy2 (B, Cout, H, W); dps, dpss (Cout).
+// Backward.  Inputs as the forward's, plus w1dg (Cin, 4 Cout) and w2dg
+// (Cout, 4 Cout), the GEMM weights of the two dgrad convs (kernels flipped
+// in space, in/out swapped, OIHW flattened); y2, dy2 (B, Cout, H, W); dps, dpss (Cout).
 // Scratch: y1 and dy1 (B, Cout, H+1, W+1), g2 (B, Cout, H, W), wpart
 // (mmlf_conv_block_wgrad_scratch floats), bpart (2 B max(Cin, Cout)).
 // Writes dx (B, Cin, H, W), dw1 (Cout, 4 Cin), dw2 (Cout, 4 Cout), db1, db2
 // (Cout), dsi, dti (Cin; zeros without affine_in).
 int mmlf_conv_block_bwd(const float* x, const float* si, const float* ti,
-                        const float* w1t, const float* b1,
-                        const float* w1dgt, const float* w2dgt,
+                        const float* w1, const float* b1,
+                        const float* w1dg, const float* w2dg,
                         const float* y2, const float* dy2, const float* dps,
                         const float* dpss, float* y1, float* g2, float* dy1,
                         float* wpart, float* bpart, float* dx, float* dw1,
@@ -690,7 +1106,7 @@ int mmlf_conv_block_bwd(const float* x, const float* si, const float* ti,
   const int H1 = H + 1, W1 = W + 1;
 
   // y1 again, from the x residual
-  MMLF_TRY(conv2x2(x, si, ti, flags, w1t, b1, nullptr, y1, B, cin, H, W,
+  MMLF_TRY(conv2x2(x, si, ti, flags, w1, b1, nullptr, y1, B, cin, H, W,
                    cout, 1, EPI_BIAS_RELU, st));
   // g2 and db2
   plane_kernel<PLANE_G2><<<dim3(cout, B), THREADS, 0, st>>>(
@@ -698,14 +1114,14 @@ int mmlf_conv_block_bwd(const float* x, const float* si, const float* ti,
   MMLF_TRY(cudaGetLastError());
   MMLF_TRY(sum_images(bpart, B, cout, db2, st));
   // dy1 = [y1 > 0] dgrad2(g2) and db1
-  MMLF_TRY(conv2x2(g2, nullptr, nullptr, 0, w2dgt, nullptr, y1, dy1, B, cout,
+  MMLF_TRY(conv2x2(g2, nullptr, nullptr, 0, w2dg, nullptr, y1, dy1, B, cout,
                    H, W, cout, 1, EPI_MASK, st));
   plane_kernel<PLANE_SUM><<<dim3(cout, B), THREADS, 0, st>>>(
       dy1, nullptr, nullptr, nullptr, 0, nullptr, bpart, B, cout, H1 * W1);
   MMLF_TRY(cudaGetLastError());
   MMLF_TRY(sum_images(bpart, B, cout, db1, st));
   // dz = dgrad1(dy1) into dx, then the input stage's backward in place
-  MMLF_TRY(conv2x2(dy1, nullptr, nullptr, 0, w1dgt, nullptr, nullptr, dx, B,
+  MMLF_TRY(conv2x2(dy1, nullptr, nullptr, 0, w1dg, nullptr, nullptr, dx, B,
                    cout, H1, W1, cin, 0, EPI_BIAS, st));
   if (flags) {
     plane_kernel<PLANE_IN_BWD><<<dim3(cin, B), THREADS, 0, st>>>(

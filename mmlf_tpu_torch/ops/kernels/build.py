@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone into
 ``build/kernels/lib<name>-<digest>.so`` beside the package, for ``sm_90a``
-(Hopper).  The digest covers the source and the flags, so an edited source
-rebuilds and a stale library is never loaded.  Nothing builds at import:
+(Hopper).  The digest covers the source, the ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds and a stale library is never
+loaded.  Nothing builds at import:
 the first launch of a kernel builds its library, and ``build_all`` starts
 one nvcc per source at once.  A failed build raises with nvcc's output.
 """
@@ -40,10 +41,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
+    """Where the library of ``csrc/<name>.cu`` goes: its digest covers the
+    source, every header under ``csrc`` (any source may include one) and
+    the flags."""
+    h = hashlib.sha256((CSRC_DIR / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 
 def _start(name: str):

@@ -15,8 +15,10 @@ Weights are OIHW, as the port's ``nn.Conv2d`` holds them; the layout is the
 port's NCHW (the TPU kernel's lane canvas does not carry over).
 
 On CUDA tensors ``fused_double_conv_fwd`` / ``fused_double_conv_bwd``
-launch the hand-written kernels of ``csrc/conv_block.cu`` (its note gives
-the bound on an H100: operations); on CPU tensors they take the plain
+launch the hand-written kernels of ``csrc/conv_block.cu``: every GEMM on
+Hopper's tensor cores in 3×TF32 (each fp32 operand split into two TF32
+parts, three products), which keeps fp32's accuracy; its note gives the
+bound on an H100 (operations).  On CPU tensors they take the plain
 PyTorch versions beside them.  There is no fallback: a build or launch
 error raises.  Each counts its kernel launches in ``.launches``.
 ``fused_double_conv`` is the autograd Function the trunk calls.
@@ -93,8 +95,9 @@ def _check(x, si, ti, w1, b1, w2, tensors) -> None:
 
 
 def _gemm_weight(w):
-    """OIHW conv weight → the kernel's ``(4·Cin, Cout)`` GEMM weight."""
-    return w.reshape(w.shape[0], -1).t().contiguous()
+    """OIHW conv weight → the kernel's K-major ``(Cout, 4·Cin)`` GEMM weight
+    (k = ci·4 + tap, the OIHW order)."""
+    return w.reshape(w.shape[0], -1).contiguous()
 
 
 def _dgrad_weight(w):
@@ -152,8 +155,8 @@ def fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
     part = torch.empty(2 * b * cout, **new)
     ps, pss = torch.empty(cout, **new), torch.empty(cout, **new)
     # the weights' GEMM copies stay referenced until the launch is queued
-    w1t, w2t = _gemm_weight(w1), _gemm_weight(w2)
-    args = _ptrs(x, si, ti, w1t, b1, w2t, b2, y1, y2, part, ps, pss)
+    w1g, w2g = _gemm_weight(w1), _gemm_weight(w2)
+    args = _ptrs(x, si, ti, w1g, b1, w2g, b2, y1, y2, part, ps, pss)
     _launch('mmlf_conv_block_fwd',
             args + [b, cin, h, w, cout, int(relu_in), int(affine_in),
                     x.device.index,
@@ -198,8 +201,8 @@ def fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
     dw2 = torch.empty((cout, cout, 2, 2), **new)
     db1, db2 = torch.empty(cout, **new), torch.empty(cout, **new)
     dsi, dti = torch.empty(cin, **new), torch.empty(cin, **new)
-    w1t, w1dg, w2dg = _gemm_weight(w1), _dgrad_weight(w1), _dgrad_weight(w2)
-    args = _ptrs(x, si, ti, w1t, b1, w1dg, w2dg, y2, dy2, dps, dpss, y1, g2,
+    w1g, w1dg, w2dg = _gemm_weight(w1), _dgrad_weight(w1), _dgrad_weight(w2)
+    args = _ptrs(x, si, ti, w1g, b1, w1dg, w2dg, y2, dy2, dps, dpss, y1, g2,
                  dy1, wpart, bpart, dx, dw1, db1, dw2, db2, dsi, dti)
     _launch('mmlf_conv_block_bwd',
             args + [b, cin, h, w, cout, int(relu_in), int(affine_in),

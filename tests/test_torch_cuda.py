@@ -193,8 +193,9 @@ def test_trunk_train_step_on_card_matches_cpu(cuda, tmp_path):
 K3_BLOCKS = [(27, 70, False, False), (70, 70, True, True),
              (280, 280, True, True), (280, 2, True, True),
              (280, 108, True, True), (70, 70, True, False)]
-# Kernel against plain version (cuDNN with TF32 off): the same fp32
-# products summed in another order, over K = 4 Cin terms per output and
+# Kernel against plain version (cuDNN with TF32 off): K3's products are
+# 3xTF32 (fp32-accurate split products on the tensor cores), cuDNN's fp32
+# FFMA, summed in another order, over K = 4 Cin terms per output and
 # over up to B·H·W = 590k pixels for the BN sums and the weight
 # gradients: each output within 1e-4 of its largest magnitude.  The inputs
 # are dyadic (few-bit multiples of powers of two): then x·si + ti and y1
@@ -278,3 +279,76 @@ def test_conv_block_autograd_on_card(cuda):
                                   want[4], want[5], want[6]),
                           ('dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2', 'db2')):
         _assert_rel(g, w, name)
+
+
+# On real-valued inputs each K3 output's error against a float64 evaluation
+# of the plain version stays within this factor of the fp32 plain version's
+# (cuDNN, TF32 off): 3xTF32 keeps fp32's accuracy, where a kernel that ran
+# one TF32 product (11 significant bits) would miss by ~500x.  Dyadic
+# inputs cannot show this: they are exact in TF32.
+K3_PREC_FACTOR = 4.0
+
+
+@pytest.mark.parametrize('size', [(64, 96, 96), (3, 13, 17)],
+                         ids=['recipe', 'ragged'])
+def test_conv_block_kernels_fp32_accurate(cuda, size):
+    """280→280 with ``relu_in=False`` and b1 large enough that y1 > 0
+    everywhere, so no ReLU mask can flip and the whole block (forward and
+    backward) is continuous."""
+    from torch.nn import functional as F
+    b, h, w = size
+    cin = cout = 280
+    rng = np.random.default_rng(b + h + w)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    x = t(rng.standard_normal((b, cin, h, w)))
+    si, ti = t(rng.uniform(0.5, 1.5, cin)), t(rng.uniform(-0.5, 0.5, cin))
+    w1 = t(rng.standard_normal((cout, cin, 2, 2)) / np.sqrt(4 * cin))
+    b1 = t(rng.uniform(10.0, 11.0, cout))
+    w2 = t(rng.standard_normal((cout, cout, 2, 2)) / np.sqrt(4 * cout))
+    b2 = t(rng.uniform(-0.1, 0.1, cout))
+    dy2 = t(rng.standard_normal((b, cout, h, w)))
+    dps, dpss = t(rng.standard_normal(cout) * 0.1), \
+        t(rng.standard_normal(cout) * 0.01)
+    d = [a.double() for a in (x, si, ti, w1, b1, w2, b2)]
+    pre = d[0] * d[1][:, None, None] + d[2][:, None, None]
+    assert float(F.conv2d(pre, d[3], d[4], padding=1).min()) > 0
+
+    got = C.fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, False, True)
+    plain = C.plain_double_conv_fwd(x, si, ti, w1, b1, w2, b2, False, True)
+    ref = C.plain_double_conv_fwd(*d, False, True)
+    y2 = plain[0]
+    got_b = C.fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
+                                    False, True)
+    plain_b = C.plain_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps,
+                                      dpss, False, True)
+    ref_b = C.plain_double_conv_bwd(*d[:6], y2.double(), dy2.double(),
+                                    dps.double(), dpss.double(), False, True)
+    torch.cuda.synchronize()
+    names = ('y2', 'ps', 'pss', 'dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2', 'db2')
+    for g, p, r, name in zip((*got, *got_b), (*plain, *plain_b),
+                             (*ref, *ref_b), names):
+        e_k = float((g.double() - r).abs().max())
+        e_p = float((p.double() - r).abs().max())
+        # floored at one fp32 ulp of the largest magnitude
+        floor = 2.0 ** -24 * float(r.abs().max())
+        assert e_k <= K3_PREC_FACTOR * max(e_p, floor), (name, e_k, e_p)
+
+
+def test_conv_block_refused_launch_raises(cuda):
+    """A launch the card refuses (here: more shared memory than a block may
+    have, from the input affine of 8000 channels) comes back as an error
+    code and raises; nothing falls back."""
+    x, si, ti, w1, b1, w2, b2, *_ = _k3_inputs(cuda, 1, 3, 3, 8000, 70,
+                                                seed=0)
+    before = C.fused_double_conv_fwd.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        C.fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, True, True)
+    assert C.fused_double_conv_fwd.launches == before
+    # the refusal is not left behind for the next launch
+    x, si, ti, w1, b1, w2, b2, *_ = _k3_inputs(cuda, 1, 3, 3, 8, 6, seed=0)
+    got = C.fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, True, True)
+    want = C.plain_double_conv_fwd(x, si, ti, w1, b1, w2, b2, True, True)
+    _assert_rel(got[0], want[0], 'y2')
