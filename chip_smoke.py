@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase, as below
     python3 chip_smoke.py k3       # card, build and the K3 phase only
+    python3 chip_smoke.py k2       # card, build and the K2 phase only
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -41,11 +42,22 @@ Phases, in order; any failure exits non-zero and prints no result:
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
              K2 against its plain version on the run's own members;
-9. K2      — the mixture posterior against its plain version at the ESE
-             shape, its time, the plain version's and the bound;
-10. member / breakdown — device time of one ESE member and host times of
+9. main_tiled — the same validation with ``--val_tile 256`` (4 windows of
+             310², halo 27); checks that K2 launched once per tile and
+             holds the member means and logvars and the selected member
+             against phase main's; prints s/scene, peak memory and the
+             metrics' differences from phase main's;
+10. K2     — the mixture posterior at the whole scene's P = 512² and one
+             tile's P = 310² (K = Kb = 70), and at 512² with
+             ``--val_disp_step 0.05``'s K = Kb = 141: within TOL of its
+             plain version, and its error against a float64 evaluation
+             within 4x the fp32 plain version's; its time, the plain
+             version's and its bounds (operations, the exp units alone,
+             and the exp units and the fp32 pipe balanced), and the
+             registers and spills of each of its instances;
+11. member / breakdown — device time of one ESE member and host times of
              the validate path's other pieces;
-11. the kernels line (JSON), the card line, and the last line
+12. the kernels line (JSON), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The weights start random (seeded) and train a few steps, so the accuracy
@@ -87,7 +99,30 @@ PEAK_TF32 = 495e12
 # TF32 products: the least time of K3's GEMMs on this card
 PEAK_3XTF32 = PEAK_TF32 / 3
 SFU_PER_SM_CLK = 16          # MUFU.EX2 results per SM per clock (Hopper)
-TOL = dict(rtol=1e-4, atol=1e-6)   # ex2.approx on a pre-scaled argument
+# fp32 instructions per warp and clock over MUFU.EX2 results (128 / 16)
+FP32_PER_EX2 = 8
+# ex2.approx / the polynomial exp2 on a pre-scaled argument
+TOL = dict(rtol=1e-4, atol=1e-6)
+# K2's error against a float64 evaluation stays within this factor of the
+# fp32 plain version's (exp and a division per term)
+K2_PREC_FACTOR = 4.0
+# the validate CLI's metrics
+METRICS = ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll')
+# --val_tile of phase main_tiled, and its halo: the trunk's receptive
+# radius 2 * (3 + 8) plus the ensemble's ceil(3.5) + 1
+VAL_TILE = 256
+VAL_HALO = 22 + 5
+VAL_WINDOW = VAL_TILE + 2 * VAL_HALO
+# K2's (members = bins, pixels): the ESE's 70 at the whole 512² scene and
+# at one 310² window, and --val_disp_step 0.05's 141 (16 bins a thread, two
+# passes) at 512²
+K2_CASES = ((70, SIZE * SIZE), (70, VAL_WINDOW * VAL_WINDOW),
+            (141, SIZE * SIZE))
+# tiled ESE equals the whole-scene ESE at least this far from the image
+# border: a window's view shifts wrap around its own edge where the whole
+# scene's wrap around the scene's, and reach 4 x 3.5 = 14 px (views 0..8
+# around 4) plus the trunk's one-sided reach of 1 px per block (11)
+TILED_EXACT_MARGIN = 14 + 11
 # K3 against its plain version (cuDNN, TF32 off) on dyadic inputs, where the
 # ReLU masks agree bit for bit: K3's products are 3xTF32 (fp32-accurate
 # split products on the tensor cores) summed in another order than cuDNN's
@@ -179,13 +214,12 @@ def check_close(got, want, what: str) -> float:
     return err
 
 
-def phase_kernel(K) -> dict:
-    """K2 against its plain version at the ESE shape (K = Kb = 70,
-    P = 512²), seeded numpy inputs."""
+def k2_inputs(k: int, p: int, seed: int):
+    """Seeded K2 inputs on the card at K = Kb = ``k``: locations over the
+    disparity range, scales exp(logvar) for logvar in [-3, 1]."""
     import numpy as np
     import torch
-    k, p = 70, SIZE * SIZE
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     dev = torch.device('cuda')
     means = torch.from_numpy(
         rng.uniform(-3.5, 3.5, (k, p)).astype(np.float32)).to(dev)
@@ -193,28 +227,99 @@ def phase_kernel(K) -> dict:
         rng.uniform(-3.0, 1.0, (k, p)).astype(np.float32)).to(dev))
     bins = torch.from_numpy(
         np.linspace(-3.5, 3.5, k).astype(np.float32)).to(dev)
+    return means, scales, bins
 
-    got = K.laplace_mixture_posterior(means, scales, bins)
-    want = K.plain_mixture_posterior(means, scales, bins)
-    torch.cuda.synchronize()
-    err = check_close(got, want, 'mixture posterior vs plain (seeded)')
-    ms = cuda_ms(lambda: K.laplace_mixture_posterior(means, scales, bins),
-                 reps=20)
-    plain_ms = cuda_ms(lambda: K.plain_mixture_posterior(means, scales,
-                                                         bins), reps=3)
-    bound_ms, bound_by = posterior_bound(k, p, k)
+
+def k2_references(K, means, scales, bins):
+    """The fp32 plain version's output, and a float64 evaluation."""
+    return (K.plain_mixture_posterior(means, scales, bins),
+            K.plain_mixture_posterior(means.double(), scales.double(),
+                                      bins.double()))
+
+
+def k2_float64_errors(got, plain, ref):
+    """``(got's and the fp32 plain version's max abs error against the
+    float64 evaluation ``ref``, one fp32 ulp of its largest output)``."""
+    return (float((got.double() - ref).abs().max()),
+            float((plain.double() - ref).abs().max()),
+            2.0 ** -24 * float(ref.abs().max()))
+
+
+def posterior_exp_bounds(k: int, p: int, kb: int) -> dict:
+    """K2's bounds from the card's pipes, besides the operation count
+    (``posterior_bound``): every exponential on MUFU.EX2 (16 a clock per
+    SM at the card's maximum SM clock), and MUFU.EX2 balanced against a
+    pipe that takes a share f of the exponentials as a polynomial:
+    ``(1 - f) * 8 = b + 9 f`` with b instructions per term besides the
+    exponential.  b = 3 counts the fp32 pipe (sub, mul, fma), b = 2 an
+    argument folded into one FFMA, b = 4 the issue slots (one instruction a
+    clock per scheduler: sub, mul, ex2, fma; a polynomial term takes 9
+    more)."""
+    import torch
     props = torch.cuda.get_device_properties(0)
     clock_mhz = float(smi('clocks.max.sm').split()[0])
-    sfu_ms = k * k * p / (props.multi_processor_count * SFU_PER_SM_CLK
-                          * clock_mhz * 1e6) * 1e3
-    log(f'kernel laplace_mixture_posterior K={k} P={p} Kb={k}: '
-        f'{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms '
-        f'({bound_by}), exp-unit estimate {sfu_ms:.4f} ms '
-        f'({props.multi_processor_count} SMs at {clock_mhz:.0f} MHz), '
-        f'max abs err {err:.3e} (tolerance rtol {TOL["rtol"]}, '
-        f'atol {TOL["atol"]})')
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by}
+    exp_ms = k * kb * p / (props.multi_processor_count * SFU_PER_SM_CLK
+                           * clock_mhz * 1e6) * 1e3
+    out = {'exp_ms': exp_ms, 'n_sm': props.multi_processor_count,
+           'clock_mhz': clock_mhz}
+    for name, b in (('fp32', 3), ('folded', 2), ('issue', 4)):
+        f = (FP32_PER_EX2 - b) / (FP32_PER_EX2 + 9)
+        out[name] = ((1.0 - f) * exp_ms, f)
+    return out
+
+
+def k2_instances(report: str) -> str:
+    """Registers and spill-store bytes of each of K2's instances (one per
+    bins-per-thread count) in its ptxas -v report."""
+    rows = []
+    for entry in report.split('Compiling entry function')[1:]:
+        bpt = re.search(r'mixture_posterior_kernelILi(\d+)E', entry)
+        regs = re.search(r'Used (\d+) registers', entry)
+        spill = re.search(r'(\d+) bytes spill stores', entry)
+        if bpt and regs and spill:
+            rows.append((int(bpt.group(1)), regs.group(1), spill.group(1)))
+    return ', '.join(f'BPT {b}: {r} regs / {sp} B spilled'
+                     for b, r, sp in sorted(rows))
+
+
+def phase_kernel(K) -> dict:
+    """K2 at each of K2_CASES: within TOL of its plain version, its error
+    against float64 within K2_PREC_FACTOR x the fp32 plain version's;
+    times and bounds.  Returns ``{(K, P): result}``."""
+    res = {}
+    for k, p in K2_CASES:
+        means, scales, bins = k2_inputs(k, p, seed=(k + p) % 1000)
+        kb = k
+        got = K.laplace_mixture_posterior(means, scales, bins)
+        plain, ref = k2_references(K, means, scales, bins)
+        err = check_close(got, plain,
+                          f'mixture posterior vs plain (K={k}, P={p})')
+        e_k, e_p, floor = k2_float64_errors(got, plain, ref)
+        if e_k > K2_PREC_FACTOR * max(e_p, floor):
+            raise AssertionError(
+                f'mixture posterior K={k}, P={p}: error vs float64 {e_k:.3e} > '
+                f'{K2_PREC_FACTOR} x the fp32 plain version\'s {e_p:.3e}')
+        ms = cuda_ms(lambda: K.laplace_mixture_posterior(means, scales, bins),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: K.plain_mixture_posterior(means, scales,
+                                                             bins), reps=3)
+        bound_ms, bound_by = posterior_bound(k, p, kb)
+        eb = posterior_exp_bounds(k, p, kb)
+        log(f'kernel laplace_mixture_posterior K={k} P={p} Kb={kb}: '
+            f'{ms:.4f} ms, plain {plain_ms:.3f} ms; bounds: {bound_ms:.4f} ms '
+            f'({bound_by}, an exp as one fp32 op), exp units alone '
+            f'{eb["exp_ms"]:.4f} ms ({eb["n_sm"]} SMs at '
+            f'{eb["clock_mhz"]:.0f} MHz), exp units and fp32 pipe balanced '
+            f'{eb["fp32"][0]:.4f} ms (f = {eb["fp32"][1]:.3f}; folded '
+            f'argument {eb["folded"][0]:.4f} ms), issue-slot estimate '
+            f'{eb["issue"][0]:.4f} ms (f = {eb["issue"][1]:.3f}); max abs err '
+            f'vs plain {err:.3e} (rtol {TOL["rtol"]}, atol {TOL["atol"]}); '
+            f'vs float64 {e_k:.3e}, fp32 plain {e_p:.3e} '
+            f'({e_k / e_p:.2f}x, limit {K2_PREC_FACTOR}x)')
+        res[(k, p)] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                  'bound_ms': bound_ms, 'bound_by': bound_by}
+        del means, scales, bins, got, plain, ref
+    return res
 
 
 def _make_scene(root: str, seed: int, name: str) -> None:
@@ -685,7 +790,7 @@ def phase_main(M, run: str, val: str) -> dict:
     launches = counts['laplace_mixture_posterior']
     peak = torch.cuda.max_memory_allocated()
 
-    for key in ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll'):
+    for key in METRICS:
         if not math.isfinite(result[key]):
             raise AssertionError(f'metric {key} = {result[key]}')
     if counts != {'window_gather': 0, 'fused_double_conv_fwd': 0,
@@ -710,8 +815,7 @@ def phase_main(M, run: str, val: str) -> dict:
 
     log(f'main: metrics of the {TRAIN_STEPS}-step checkpoint (the values '
         f'mean nothing) '
-        + json.dumps({k: result[k] for k in ('mse', 'badpix', 'kld',
-                                              'kld_mm', 'kld_um', 'nll')}))
+        + json.dumps({k: result[k] for k in METRICS}))
     log(f'main: ESE validate {result["runtime"]:.3f} s/scene (CLI runtime, '
         f'load to artifacts), {wall:.3f} s CLI wall, peak device memory '
         f'{peak / 2**30:.3f} GiB, mixture posterior launches {launches}')
@@ -731,12 +835,82 @@ def phase_main(M, run: str, val: str) -> dict:
         f'{err:.3e}')
     return {'launches': launches, 'max_abs_err': err,
             's_per_scene': result['runtime'], 'wall_s': wall,
-            'peak_bytes': peak}
+            'peak_bytes': peak, 'gmm': gmm,
+            'metrics': {k: result[k] for k in METRICS}}
+
+
+def phase_main_tiled(M, run: str, val: str, gmm_whole,
+                     metrics_whole) -> dict:
+    """ESE validate of the same checkpoint with ``--val_tile``: K2 once per
+    tile, and the member means and logvars, the selected member and the
+    metrics against the whole-scene run's (``gmm_whole``, phase main's
+    gmm.npy, and ``metrics_whole``)."""
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.ops.masks import create_mask_margin_np
+    from mmlf_tpu_torch.validate import cli
+    from mmlf_tpu_torch.validate.tiling import tile_positions
+
+    n_tiles = len(tile_positions(SIZE, SIZE, VAL_TILE, VAL_HALO))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(M)
+    t = time.time()
+    result = cli.main([run, val, '--val_ensamble', '--val_tile',
+                       str(VAL_TILE)], standalone_mode=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_launches(M)
+    peak = torch.cuda.max_memory_allocated()
+    for key in METRICS:
+        if not math.isfinite(result[key]):
+            raise AssertionError(f'tiled metric {key} = {result[key]}')
+    if counts != {'window_gather': 0, 'fused_double_conv_fwd': 0,
+                  'fused_double_conv_bwd': 0,
+                  'laplace_mixture_posterior': n_tiles}:
+        raise AssertionError(f'tiled ESE validate of 1 scene in {n_tiles} '
+                             f'tiles launched {counts}')
+    gmm = np.load(os.path.join(run, 'scenes', 'scene_00', 'gmm.npy'))
+    if gmm.shape != gmm_whole.shape or not np.isfinite(gmm).all():
+        raise AssertionError(f'tiled gmm.npy {gmm.shape}')
+
+    # gmm.npy holds (means, exp(logvars)) of the 70 members
+    d_mean = np.abs(gmm[0] - gmm_whole[0])
+    d_lv = np.abs(np.log(gmm[1]) - np.log(gmm_whole[1]))
+    sel = np.argmin(gmm[1], 0) != np.argmin(gmm_whole[1], 0)
+    diffs = {}
+    for margin in (15, TILED_EXACT_MARGIN):
+        m = create_mask_margin_np((SIZE, SIZE), margin)
+        diffs[margin] = (float(d_mean[:, m].max()), float(d_lv[:, m].max()),
+                         float(sel[m].mean()))
+    dm, dl, share = diffs[TILED_EXACT_MARGIN]
+    if dm > 1e-4 or dl > 1e-4 or share > 1e-3:
+        raise AssertionError(
+            f'tiled ESE vs whole scene at margin {TILED_EXACT_MARGIN}: '
+            f'means {dm:.3e}, logvars {dl:.3e} (limit 1e-4), selected '
+            f'member differs at {share:.2e} of pixels (limit 1e-3)')
+    log(f'main_tiled: ESE validate with --val_tile {VAL_TILE} ({n_tiles} '
+        f'windows of {VAL_WINDOW}², halo {VAL_HALO}): '
+        f'{result["runtime"]:.3f} s/scene (CLI runtime), {wall:.3f} s CLI '
+        f'wall, peak device memory {peak / 2**30:.3f} GiB, mixture '
+        f'posterior launches {counts["laplace_mixture_posterior"]}; against '
+        f'the whole-scene run, max |d means| / |d logvars| / share of '
+        f'pixels whose selected member differs: '
+        + '; '.join(f'margin {mg}: {a:.3e} / {b:.3e} / {c:.2e}'
+                    for mg, (a, b, c) in diffs.items())
+        + f' (limits 1e-4 / 1e-4 / 1e-3 at margin {TILED_EXACT_MARGIN})')
+    log('main_tiled: metrics ' + json.dumps(
+        {k: result[k] for k in METRICS}) + '; minus the whole-scene run\'s '
+        '(margin-15 mask; the windows\' view shifts wrap at their edges) '
+        + json.dumps({k: result[k] - metrics_whole[k] for k in METRICS}))
+    return {'launches': counts['laplace_mixture_posterior'],
+            's_per_scene': result['runtime'], 'peak_bytes': peak}
 
 
 def phase_member_time() -> None:
     """Device time of one warm full-width ESE member (shift + forward) at
-    512², for the breakdown of the ESE time."""
+    the whole 512² scene and at one 310² ``--val_tile 256`` window, for the
+    breakdown of the ESE time."""
     import torch
     from mmlf_tpu_torch.config import Config
     from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
@@ -745,15 +919,17 @@ def phase_member_time() -> None:
     cfg = Config(val_ensamble=True, model_no_batchnorm=True).finalize()
     model = init_live_(FeedForward.from_config(cfg), seed=1).cuda().eval()
     gen = torch.Generator(device='cuda').manual_seed(0)
-    stacks = [torch.rand((1, 9, SIZE, SIZE, 3), generator=gen,
-                         device='cuda') for _ in range(4)]
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: model(*stacks), reps=3)
-        shift_ms = cuda_ms(lambda: shift_lf(*stacks, 1.3), reps=10)
-    flop = SIZE * SIZE * conv_flop_per_pixel()
-    log(f'member: forward {fwd_ms:.2f} ms ({flop / fwd_ms / 1e9:.1f} '
-        f'TFLOP/s fp32 on {flop / 1e12:.3f} TFLOP), shift {shift_ms:.3f} ms; '
-        f'x70 members = {70 * (fwd_ms + shift_ms) / 1e3:.2f} s')
+    for size, members in ((SIZE, 70), (VAL_WINDOW, 4 * 70)):
+        stacks = [torch.rand((1, 9, size, size, 3), generator=gen,
+                             device='cuda') for _ in range(4)]
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(*stacks), reps=3)
+            shift_ms = cuda_ms(lambda: shift_lf(*stacks, 1.3), reps=10)
+        flop = size * size * conv_flop_per_pixel()
+        log(f'member at {size}²: forward {fwd_ms:.2f} ms '
+            f'({flop / fwd_ms / 1e9:.1f} TFLOP/s fp32 on {flop / 1e12:.3f} '
+            f'TFLOP), shift {shift_ms:.3f} ms; x{members} members = '
+            f'{members * (fwd_ms + shift_ms) / 1e3:.2f} s')
 
 
 def phase_breakdown(run: str, val: str) -> None:
@@ -819,7 +995,10 @@ def main() -> int:
     card = smi('name,power.limit')
     log(f'card: {card}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, {torch.cuda.device_count()} device(s)')
-    only_k3 = sys.argv[1:] == ['k3']
+    mode = sys.argv[1:]
+    if mode not in ([], ['k3'], ['k2']):
+        print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
+        return 2
 
     t = time.time()
     libs = build.build_all()
@@ -833,8 +1012,13 @@ def main() -> int:
         log(f'build: {name}: {len(regs)} kernel instantiation(s), '
             f'{min(regs)}-{max(regs)} registers, spill stores up to '
             f'{max(spills)} bytes')
-    if only_k3:
+    log('build: posterior by bins per thread: '
+        + k2_instances(build.ptxas_report('posterior')))
+    if mode == ['k3']:
         phase_conv_block(M)
+        return 0
+    if mode == ['k2']:
+        phase_kernel(K)
         return 0
 
     work = os.path.join(REPO, 'build', 'chip_smoke')
@@ -872,7 +1056,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     main_run = phase_main(M, run, val)
-    kern = phase_kernel(K)
+    gmm_whole = main_run.pop('gmm')
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiled_run = phase_main_tiled(M, run, val, gmm_whole,
+                                 main_run['metrics'])
+    del gmm_whole
+    log(f'ESE validate: whole scene {main_run["s_per_scene"]:.3f} s/scene, '
+        f'{main_run["peak_bytes"] / 2**30:.3f} GiB; --val_tile {VAL_TILE} '
+        f'{tiled_run["s_per_scene"]:.3f} s/scene, '
+        f'{tiled_run["peak_bytes"] / 2**30:.3f} GiB')
+    k2 = phase_kernel(K)
+    kern = k2[K2_CASES[0]]
     phase_member_time()
     phase_breakdown(run, val)
     torch.cuda.synchronize()
@@ -895,7 +1090,8 @@ def main() -> int:
         'source': 'mmlf_tpu_torch/csrc/posterior.cu',
         'replaces': 'mmlf_tpu/ops/pallas/posterior.py:48',
         'launches': main_run['launches'],
-        'max_abs_err': max(kern['max_abs_err'], main_run['max_abs_err']),
+        'max_abs_err': max([r['max_abs_err'] for r in k2.values()]
+                           + [main_run['max_abs_err']]),
         'ms': kern['ms'],
         'plain_ms': kern['plain_ms'],
         'bound_ms': kern['bound_ms'],

@@ -9,22 +9,41 @@
 // layout that the ensemble returns, so no transpose pass follows.
 //
 // What bounds it on an H100 SXM: at the ESE shape (K = Kb = 70,
-// P = 512^2) it evaluates K*Kb*P = 1.28e9 exponentials.  The exponential
-// runs on the special-function units (MUFU.EX2), 16 per clock per SM:
-// 132 SMs * 16 * ~1.98 GHz = ~4.2e12/s, so ~0.31 ms.  The rest of the work
-// per term is three fp32 ops (sub, mul, fma), 3.8e9 ops in all, ~0.06 ms
-// at 67 TFLOP/s; the bytes are two (K, P) reads and one (P, Kb) write,
-// ~220 MB, ~0.07 ms at 3.35 TB/s.  So the kernel is bound by the
-// exponentials.  Its design keeps everything else off that path:
+// P = 512^2) it evaluates K*Kb*P = 1.28e9 exponentials.  MUFU.EX2, the
+// special-function units' exponential, gives 16 results per clock per SM:
+// 132 SMs * 16 * ~1.98 GHz = ~4.2e12/s, so ~0.31 ms if every exponential
+// took it.  The bytes are two (K, P) reads and one (P, Kb) write, ~220 MB,
+// ~0.07 ms at 3.35 TB/s.  A MUFU term costs four issue slots (sub, mul,
+// ex2, fma) where the special-function unit takes eight clocks per warp,
+// so the issue slots and the fp32 pipe are half idle.  The kernel
+// therefore splits the exponentials between the two pipes: a fixed share
+// of each thread's bins takes exp2_poly (exp2_poly.cuh: clamp, split,
+// five FFMAs, exponent add; 13 issue slots, none on the MUFU), the rest
+// ex2.approx.ftz (one MUFU.EX2).  Counting issue slots, the two would
+// balance at 8 (1 - f) = 4 + 9 f, f ~ 0.24; on the card a polynomial term
+// costs more than its 13 slots and the fastest share is one bin of the
+// nine a thread holds at Kb = 70 (2 of 9 and more are slower: PERF.md).
+// The share is fixed at compile time by the bin's slot in the unrolled
+// loop (slot i takes the polynomial when i % 5 == 4), so no warp
+// diverges.  The member loop is unrolled twice.  Up to 9 bins a thread
+// (Kb <= 72) the launch bound caps registers for 5 resident blocks a SM
+// (48, no spills; left alone the unrolled loop takes 64 and 4 blocks, and
+// runs slower); more bins a thread (a finer --val_disp_step) need more
+// accumulators than 48 registers hold, and take no cap.
+//
+// The rest of the design keeps everything else off that path:
 //   * -log2(e)/v and 1/(2v) are computed once per (member, pixel), at
-//     staging, and reused for every bin; each term is then sub, mul, ex2,
-//     fma;
-//   * the exponential is ex2.approx.ftz on a pre-scaled argument (one MUFU
-//     op, no range-reduction sequence);
+//     staging, and reused for every bin;
+//   * each term's argument is |bin - m| * s (sub, mul).  Folding it into
+//     one FFMA on a staged m*s (fma(bin, s, -m*s)) would save an issue
+//     slot, but the rounding of m*s then sits in every argument near
+//     m = bin, and the output's error against float64 grows past 4x the
+//     plain fp32 version's;
 //   * sums stay in fp32 registers across the member loop;
-//   * a block stages its pixels' locations and factors for a chunk of 32
-//     members in shared memory with coalesced reads, so the exponential
-//     loop never waits on device memory and each value is read once;
+//   * a block stages its pixels' (m, s, c) for a chunk of 32 members in
+//     shared memory with coalesced reads, one 16-byte entry per member
+//     and pixel, so each term reads no device memory and each member
+//     costs one shared-memory load;
 //   * the block's (pixels x bins) tile is staged in shared memory and
 //     written out as one contiguous, coalesced run of the (P, Kb) output.
 //
@@ -37,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exp2_poly.cuh"
+
 namespace {
 
 constexpr int TILE_P = 32;
@@ -44,9 +65,16 @@ constexpr int WARPS = 8;
 constexpr int THREADS = TILE_P * WARPS;
 constexpr int MAX_BPT = 16;     // bins per thread and pass, at most
 constexpr int MEMBER_CHUNK = 32;
-// shared memory: the output tile (TILE_P x n_bins) plus three staged
-// (MEMBER_CHUNK x TILE_P) member arrays; 256 bins keep it under 48 KB
+// shared memory: the output tile (TILE_P x n_bins) plus the staged
+// (MEMBER_CHUNK x TILE_P) member entries of four floats; 256 bins keep it
+// within 48 KB
 constexpr int MAX_BINS = 256;
+constexpr int POLY_EVERY = 5;   // bin slot i % POLY_EVERY == 4: polynomial
+constexpr int LEAN_BPT = 9;     // up to here, registers for 5 blocks a SM
+
+__device__ __forceinline__ constexpr bool takes_poly(int i) {
+  return i % POLY_EVERY == POLY_EVERY - 1;
+}
 
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
@@ -55,7 +83,7 @@ __device__ __forceinline__ float ex2_approx(float x) {
 }
 
 template <int BPT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, BPT <= LEAN_BPT ? 5 : 1)
 mixture_posterior_kernel(const float* __restrict__ means,
                          const float* __restrict__ scales,
                          const float* __restrict__ bins,
@@ -63,9 +91,8 @@ mixture_posterior_kernel(const float* __restrict__ means,
                          int n_members, long long n_pixels, int n_bins) {
   extern __shared__ float smem[];
   float* tile = smem;                            // [TILE_P][n_bins]
-  float* st_m = smem + TILE_P * n_bins;          // [MEMBER_CHUNK][TILE_P]
-  float* st_s = st_m + MEMBER_CHUNK * TILE_P;    // -log2(e) / v
-  float* st_c = st_s + MEMBER_CHUNK * TILE_P;    // 1 / (2 v)
+  // [MEMBER_CHUNK][TILE_P] of (m, s = -log2(e) / v, c = 1 / (2 v), pad)
+  float4* staged = reinterpret_cast<float4*>(smem + TILE_P * n_bins);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -102,19 +129,20 @@ mixture_posterior_kernel(const float* __restrict__ means,
           s = -log2e * rv;    // exp(-d/v) == 2^(-d*log2e/v)
           c = 0.5f * rv;
         }
-        st_m[idx] = m;
-        st_s[idx] = s;
-        st_c[idx] = c;
+        staged[idx] = make_float4(m, s, c, 0.0f);
       }
       __syncthreads();
 
+#pragma unroll 2
       for (int kk = 0; kk < kc; ++kk) {
-        const float m = st_m[kk * TILE_P + lane];
-        const float s = st_s[kk * TILE_P + lane];
-        const float c = st_c[kk * TILE_P + lane];
+        const float4 e = staged[kk * TILE_P + lane];
 #pragma unroll
-        for (int i = 0; i < BPT; ++i)
-          acc[i] = fmaf(c, ex2_approx(fabsf(bin[i] - m) * s), acc[i]);
+        for (int i = 0; i < BPT; ++i) {
+          // the exponent, <= 0: -|bin - m| * log2(e) / v
+          const float x = fabsf(bin[i] - e.x) * e.y;
+          const float t = takes_poly(i) ? mmlf::exp2_poly(x) : ex2_approx(x);
+          acc[i] = fmaf(e.z, t, acc[i]);
+        }
       }
     }
 
@@ -155,7 +183,7 @@ int mmlf_posterior_launch(const void* means, const void* scales,
   const long long blocks = (n_pixels + TILE_P - 1) / TILE_P;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const size_t smem =
-      sizeof(float) * TILE_P * ((size_t)n_bins + 3 * MEMBER_CHUNK);
+      sizeof(float) * TILE_P * ((size_t)n_bins + 4 * MEMBER_CHUNK);
   // the fewest bins per thread that cover n_bins in one pass (up to 16)
   const int bpt = min(MAX_BPT, (n_bins + WARPS - 1) / WARPS);
   const dim3 grid((unsigned)blocks);

@@ -13,11 +13,21 @@ multimodal / unimodal pixels) and NLL; the artifacts are written by
 ``save_batch``, and a LaTeX-ready result row is printed.  The metric branch
 is keyed off the STORED config, as in the reference.
 
+``--val_tile N`` runs the forward (or the whole ensemble, with its
+mixture posterior) over overlapping windows of ``N + 2 * halo`` pixels and
+stitches the interiors (validate/tiling.py); the halo is the receptive
+radius, plus ``ceil(max |disp|) + 1`` for the ensemble, as in the JAX
+package.  The metrics are taken on the stitched outputs.  With the
+ensemble a window's view shifts wrap around the window's edge, not the
+scene's, so near the image border (within the largest shift plus the
+receptive radius, 25 px at full width) the members, and so the metrics,
+differ slightly from the whole-scene run, as in the JAX package.
+
 Runs on the card by default (``--device cuda``) in float32 with TF32 off,
 and raises when CUDA is asked for but absent.  Reads a reference-format
 ``checkpoint.pt``.  Not ported yet (each raises NotImplementedError):
-``--val_tile``, ``--mesh_space``, ``--mesh_ensemble``, U-Net / INN /
-invertible checkpoints, and run directories holding only the JAX package's
+``--mesh_space``, ``--mesh_ensemble``, U-Net / INN / invertible
+checkpoints, and run directories holding only the JAX package's
 ``checkpoint.msgpack``.  ``--jax_cache`` has no counterpart: nothing is
 compiled per scene here.
 """
@@ -46,6 +56,7 @@ from ..utils.device import resolve_device
 from ..utils.fold_bn import fold_batchnorm
 from . import calibrate
 from . import posteriors as P
+from .tiling import receptive_radius, tiled_forward
 
 CKPT_PT = 'checkpoint.pt'
 CKPT_MSGPACK = 'checkpoint.msgpack'
@@ -71,12 +82,16 @@ def load_model_state(output_dir: str):
 def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
                     val_disp_min: float, val_disp_max: float,
                     val_disp_step: float, val_loss_margin: int,
-                    n_bins: int = 108):
+                    n_bins: int = 108, val_tile: int = 0):
     """Forward + every metric for one scene.
 
     Returns ``scene_eval(h, v, i, d, gt, mpi, offsets=None) -> (output,
     metrics)`` on device tensors (batch-first stacks, gt ``(b, H, W)``,
-    MPI ``(b, K, H, W, 5)``); metrics are 0-d tensors.
+    MPI ``(b, K, H, W, 5)``); metrics are 0-d tensors.  ``val_tile > 0``
+    runs the forward tile by tile (``tiling.tiled_forward``): exact for
+    BASE/UPR/DPP; for the ensemble the sub-pixel shift's circular wrap
+    lands in the tile window's edge instead of the image border, as in the
+    JAX package.
     """
 
     def net_forward(h, v, i, d, offsets):
@@ -128,9 +143,19 @@ def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
         return {'mse': mse, 'bad_pix': bad_pix, 'nll': nll_eval,
                 'kld': kld, 'kld_mm': kld_mm, 'kld_um': kld_um}
 
+    halo = receptive_radius(cfg.model_ksize, cfg.model_in_blocks,
+                            cfg.model_out_blocks)
+    if val_ensamble:       # the ensemble's shift reaches ceil(disp)+1 further
+        halo += int(np.ceil(max(abs(val_disp_min), abs(val_disp_max)))) + 1
+
     @torch.no_grad()
     def scene_eval(h, v, i, d, gt, mpi, offsets=None):
-        output = net_forward(h, v, i, d, offsets)
+        if val_tile > 0:
+            output = tiled_forward(
+                lambda *win: net_forward(*win, offsets), (h, v, i, d),
+                val_tile, halo)
+        else:
+            output = net_forward(h, v, i, d, offsets)
         return output, metrics_from_output(output, gt, mpi)
 
     return scene_eval
@@ -153,9 +178,12 @@ def run_validation(output_dir, dataset, model_discrete=False,
                    mesh_ensemble=1, val_recalibrate='', val_cal_scenes=2,
                    val_save_calibration='', device='cuda'):
     """Programmatic entry (the CLI body); returns the metric averages."""
+    # the three scene-scale extensions are mutually exclusive (each owns
+    # the devices / the forward in a different way)
+    if sum([val_tile > 0, mesh_space > 1, mesh_ensemble > 1]) > 1:
+        raise click.UsageError('--val_tile, --mesh_space and '
+                               '--mesh_ensemble are mutually exclusive')
     dev = resolve_device(device)
-    if val_tile > 0:
-        raise _not_ported('--val_tile', 'Queue 1: tiled inference')
     if mesh_space > 1:
         raise _not_ported('--mesh_space', 'Queue 1: data parallel')
     if mesh_ensemble > 1:
@@ -186,7 +214,7 @@ def run_validation(output_dir, dataset, model_discrete=False,
     n_bins = 108
     scene_eval = make_scene_eval(model, cfg, kwargs, val_ensamble,
                                  val_disp_min, val_disp_max, val_disp_step,
-                                 val_loss_margin, n_bins)
+                                 val_loss_margin, n_bins, val_tile)
 
     # --- ESE logvar-calibration machinery (validate/calibrate.py) ---
     shifts_grid = None
@@ -333,7 +361,12 @@ def run_validation(output_dir, dataset, model_discrete=False,
               help='Static shift to apply to off-center training datasets')
 @click.option('--val_tile', default=0, type=int,
               help='Tiled inference with this interior tile size '
-                   '(not ported: raises unless 0)')
+                   '(0 = whole-scene forward). Exact for non-ensemble '
+                   'heads; bounds device memory for large scenes. With '
+                   '--val_ensamble the view shifts wrap at each window\'s '
+                   'edge, so members and the ESE metrics can differ from '
+                   'the whole-scene run near the image border (within the '
+                   'largest shift plus the receptive radius).')
 @click.option('--mesh_space', default=1, type=int,
               help='Spatial sharding over devices (not ported: raises '
                    'unless 1)')

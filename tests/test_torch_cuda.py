@@ -53,6 +53,39 @@ def test_mixture_kernel_matches_plain(cuda, k, p, kb):
         got, K.plain_mixture_posterior(means, scales, bins), **TOL)
 
 
+# each output's error against a float64 evaluation stays within this factor
+# of the fp32 plain version's (expf and a division per term), where the
+# kernel takes its exponentials from MUFU.EX2 (~2 ulp) and, for a share of
+# the bins, from the polynomial of csrc/exp2_poly.cuh (<= 2e-7 relative)
+K2_PREC_FACTOR = 4.0
+
+
+@pytest.mark.parametrize('k,p', [(70, 512 * 512), (70, 310 * 310),
+                                 (141, 512 * 512)],
+                         ids=['scene', 'tile', 'disp_step_0.05'])
+def test_mixture_kernel_fp32_accurate(cuda, k, p):
+    """At the ESE's K = Kb = 70, for the whole 512² scene and one
+    ``--val_tile 256`` window (310², ragged against the 32-pixel tile), and
+    at ``--val_disp_step 0.05``'s K = Kb = 141 (16 bins a thread, two
+    passes, no register cap), with scales exp(logvar), logvar in [-3, 1]."""
+    rng = np.random.default_rng(p)
+    means = torch.from_numpy(
+        rng.uniform(-3.5, 3.5, (k, p)).astype(np.float32)).to(cuda)
+    scales = torch.exp(torch.from_numpy(
+        rng.uniform(-3.0, 1.0, (k, p)).astype(np.float32)).to(cuda))
+    bins = torch.from_numpy(
+        np.linspace(-3.5, 3.5, k).astype(np.float32)).to(cuda)
+    got = K.laplace_mixture_posterior(means, scales, bins)
+    plain = K.plain_mixture_posterior(means, scales, bins)
+    ref = K.plain_mixture_posterior(means.double(), scales.double(),
+                                    bins.double())
+    torch.testing.assert_close(got, plain, **TOL)
+    e_k = float((got.double() - ref).abs().max())
+    e_p = float((plain.double() - ref).abs().max())
+    floor = 2.0 ** -24 * float(ref.abs().max())
+    assert e_k <= K2_PREC_FACTOR * max(e_p, floor), (e_k, e_p)
+
+
 def test_mixture_kernel_rejects_too_many_bins(cuda):
     means, scales, bins = _inputs(cuda, 2, 8, K.max_bins() + 1)
     with pytest.raises(ValueError, match='bins'):
@@ -78,6 +111,38 @@ def test_ensemble_on_card_matches_cpu(cuda):
                                    atol=5e-4)
     agree = (got['mean'].cpu() - want['mean']).abs() < 5e-4
     assert agree.float().mean() >= 0.999
+    torch.testing.assert_close(got['posterior'].cpu(), want['posterior'],
+                               rtol=1e-3, atol=1e-4)
+
+
+def test_tiled_ensemble_on_card_matches_cpu(cuda):
+    """``--val_tile``'s forward: the ensemble per window on the card, K2
+    launched once per tile, against the same tiled forward on the CPU."""
+    from mmlf_tpu_torch.validate.tiling import (receptive_radius,
+                                                tile_positions,
+                                                tiled_forward)
+    cfg = Config(model_chs=8, model_views=9, model_in_blocks=1,
+                 model_out_blocks=2, model_uncert=True).finalize()
+    model = init_live_(FeedForward.from_config(cfg), seed=3).eval()
+    rng = np.random.default_rng(5)
+    stacks = [torch.from_numpy(rng.random((1, 9, 72, 88, 3),
+                                          dtype=np.float32))
+              for _ in range(4)]
+    halo = receptive_radius(2, 1, 2) + 5
+    n_tiles = len(tile_positions(72, 88, 32, halo))
+
+    def run(m, s):
+        return tiled_forward(lambda *w: ensemble_forward(m, *w, -3.5, 3.5,
+                                                         0.1), s, 32, halo)
+    want = run(model, stacks)
+    before = K.laplace_mixture_posterior.launches
+    got = run(model.to(cuda), [s.to(cuda) for s in stacks])
+    torch.cuda.synchronize()
+    assert K.laplace_mixture_posterior.launches == before + n_tiles
+    for key in ('means', 'logvars'):
+        assert got[key].shape == (70, 1, 72, 88)
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
+                                   atol=5e-4)
     torch.testing.assert_close(got['posterior'].cpu(), want['posterior'],
                                rtol=1e-3, atol=1e-4)
 

@@ -18,6 +18,7 @@ import importlib, pkgutil, sys
 import mmlf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mmlf_tpu_torch.__path__,
                                                'mmlf_tpu_torch.')]
+assert 'mmlf_tpu_torch.validate.tiling' in names
 for name in names:
     importlib.import_module(name)
 from mmlf_tpu_torch.ops.kernels import build
@@ -72,6 +73,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from mmlf_tpu_torch.validate.cli import main, run_validation
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         run_validation(str(tmp_path), str(tmp_path), device='cuda')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        run_validation(str(tmp_path), str(tmp_path), val_ensamble=True,
+                       val_tile=256, device='cuda')
     res = CliRunner().invoke(main, [str(tmp_path), str(tmp_path),
                                     '--val_ensamble'])
     assert isinstance(res.exception, RuntimeError), res.output

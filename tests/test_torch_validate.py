@@ -82,8 +82,7 @@ def test_validate_matches_jax(case, dataset, tmp_path):
                                        'scene_00.txt'))
 
 
-@pytest.mark.parametrize('kw', [{'val_tile': 32}, {'mesh_space': 2},
-                                {'mesh_ensemble': 2}])
+@pytest.mark.parametrize('kw', [{'mesh_space': 2}, {'mesh_ensemble': 2}])
 def test_unported_options_raise(kw, dataset, tmp_path):
     _checkpoint(str(tmp_path), True)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
