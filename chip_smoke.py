@@ -4,6 +4,8 @@
     python3 chip_smoke.py          # every phase, as below
     python3 chip_smoke.py k3       # card, build and the K3 phase only
     python3 chip_smoke.py k2       # card, build and the K2 phase only
+    python3 chip_smoke.py serve    # card, build, the val scene, a seeded
+                                   # full-width checkpoint, main and serve
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -47,7 +49,15 @@ Phases, in order; any failure exits non-zero and prints no result:
              holds the member means and logvars and the selected member
              against phase main's; prints s/scene, peak memory and the
              metrics' differences from phase main's;
-10. K2     — the mixture posterior at the whole scene's P = 512² and one
+10. serve  — the plain run's checkpoint exported as five artifacts (UPR
+             fp32, UPR u8, UPR batch 2, UPR tiled 256, ESE), each served
+             by ``make_server`` on a thread and sent one warm-up and 3 (ESE:
+             2) timed requests over HTTP; checks /healthz, status 200, the
+             u8, batch-2 and tiled means against the fp32 one (1e-5), the
+             ESE result.pfm and metrics against phase main's, and K2 once
+             per ESE request; prints median runtime_s, HTTP wall, host
+             share and peak memory for each;
+11. K2     — the mixture posterior at the whole scene's P = 512² and one
              tile's P = 310² (K = Kb = 70), and at 512² with
              ``--val_disp_step 0.05``'s K = Kb = 141: within TOL of its
              plain version, and its error against a float64 evaluation
@@ -55,15 +65,15 @@ Phases, in order; any failure exits non-zero and prints no result:
              version's and its bounds (operations, the exp units alone,
              and the exp units and the fp32 pipe balanced), and the
              registers and spills of each of its instances;
-11. member / breakdown — device time of one ESE member and host times of
+12. member / breakdown — device time of one ESE member and host times of
              the validate path's other pieces;
-12. the kernels line (JSON), the card line, and the last line
+13. the kernels line (JSON), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The weights start random (seeded) and train a few steps, so the accuracy
 numbers printed mean nothing; the run shows that the port builds, agrees
 with its plain versions and runs the main path's train step (plain and
-``--pallas_trunk``) and its validation on the card.
+``--pallas_trunk``), its validation and its serving on the card.
 Imports nothing of JAX or of mmlf_tpu.
 """
 
@@ -113,6 +123,23 @@ METRICS = ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll')
 VAL_TILE = 256
 VAL_HALO = 22 + 5
 VAL_WINDOW = VAL_TILE + 2 * VAL_HALO
+# phase serve: the artifacts exported from the plain train phase's
+# checkpoint, in this order (u8, batch-2 and tiled are held against 'upr')
+SERVE_ARTIFACTS = (('upr', {}), ('upr_u8', {'u8': True}),
+                   ('upr_b2', {'batch': 2}),
+                   ('upr_tiled', {'tiled': VAL_TILE}),
+                   ('ese', {'val_ensamble': True}))
+# the UPR requests' train_shift (the u8 artifact shifts on the device); the
+# ESE requests carry none, so the server's 0.0 applies, the shift phase
+# main validated at (its CLI default 0.0 overrides the stored 2.5)
+SERVE_SHIFT = 2.5
+# timed requests after one warm-up, by val_ensamble
+SERVE_REQUESTS = {False: 3, True: 2}
+# the same function on the same card: max abs difference of served means
+# (u8 vs fp32: the same values by another route; batch 2 and tiled: other
+# conv shapes), and the ESE metrics' relative difference from phase main
+SERVE_TOL = 1e-5
+SERVE_REL = 1e-5
 # K2's (members = bins, pixels): the ESE's 70 at the whole 512² scene and
 # at one 310² window, and --val_disp_step 0.05's 141 (16 bins a thread, two
 # passes) at 512²
@@ -333,19 +360,19 @@ def _make_scene(root: str, seed: int, name: str) -> None:
     os.rmdir(tmp)
 
 
-def phase_data(work: str):
-    """Train scenes (seeds 0..3) and the val scene (seed 7), one process
-    each."""
+def phase_data(work: str, n_train: int = TRAIN_SCENES):
+    """``n_train`` train scenes (seeds 0, 1, ...) and the val scene (seed
+    7), one process each."""
     import multiprocessing
     train, val = os.path.join(work, 'train'), os.path.join(work, 'val')
     os.makedirs(train)
     os.makedirs(val)
-    jobs = [(train, s, f'scene_{s:02d}') for s in range(TRAIN_SCENES)]
+    jobs = [(train, s, f'scene_{s:02d}') for s in range(n_train)]
     jobs.append((val, 7, 'scene_00'))
     t = time.time()
     with multiprocessing.get_context('spawn').Pool(len(jobs)) as pool:
         pool.starmap(_make_scene, jobs)
-    log(f'data: {TRAIN_SCENES} train scenes and 1 val scene of '
+    log(f'data: {n_train} train scenes and 1 val scene of '
         f'{SIZE}x{SIZE} in {time.time() - t:.1f} s')
     return train, val
 
@@ -813,8 +840,8 @@ def phase_main(M, run: str, val: str) -> dict:
     if gmm.shape != (2, 70, SIZE, SIZE) or not np.isfinite(gmm).all():
         raise AssertionError(f'gmm.npy {gmm.shape}')
 
-    log(f'main: metrics of the {TRAIN_STEPS}-step checkpoint (the values '
-        f'mean nothing) '
+    log('main: metrics of the checkpoint (random weights trained a few '
+        'steps at most: the values mean nothing) '
         + json.dumps({k: result[k] for k in METRICS}))
     log(f'main: ESE validate {result["runtime"]:.3f} s/scene (CLI runtime, '
         f'load to artifacts), {wall:.3f} s CLI wall, peak device memory '
@@ -833,9 +860,11 @@ def phase_main(M, run: str, val: str) -> dict:
                 'kernel vs posterior.npy of the CLI')
     log(f'main: kernel vs plain on the main path\'s members, max abs err '
         f'{err:.3e}')
+    from mmlf_tpu_torch.utils import pfm
     return {'launches': launches, 'max_abs_err': err,
             's_per_scene': result['runtime'], 'wall_s': wall,
             'peak_bytes': peak, 'gmm': gmm,
+            'result': pfm.load(os.path.join(scene, 'result.pfm')),
             'metrics': {k: result[k] for k in METRICS}}
 
 
@@ -907,6 +936,156 @@ def phase_main_tiled(M, run: str, val: str, gmm_whole,
             's_per_scene': result['runtime'], 'peak_bytes': peak}
 
 
+def _http(port: int, method: str, path: str, payload=None):
+    """``(status, JSON body, wall seconds)`` of one request to the server on
+    ``port``."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f'http://127.0.0.1:{port}{path}',
+                                 data=data, method=method)
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, time.perf_counter() - t
+
+
+def phase_serve(M, run: str, val: str, main_run: dict, card: str) -> dict:
+    """Export the checkpoint in ``run`` as each of SERVE_ARTIFACTS, serve
+    each through ``make_server`` on a thread and send it requests over
+    HTTP (one warm-up, then SERVE_REQUESTS timed).  Checks: /healthz,
+    status 200 on every request, the u8, batch-2 and tiled means against
+    the fp32 one, the ESE result.pfm and metrics against phase main's
+    (``main_run``), and K2 once per ESE request.  Returns the K2
+    launches."""
+    import statistics
+    import threading
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.export import export_inference
+    from mmlf_tpu_torch.serve import InferenceEngine, make_server
+    from mmlf_tpu_torch.utils import pfm
+
+    work = os.path.join(os.path.dirname(run), 'serve')
+    os.makedirs(work)
+    scene = os.path.join(val, 'scene_00')
+    # a second name for the val scene: a 2-scene request writes each
+    # scene's results under its directory's name
+    scene_b = os.path.join(work, 'scene_b')
+    os.symlink(scene, scene_b)
+    results, n_ese = {}, 0
+    torch.cuda.synchronize()
+    reset_launches(M)
+    for name, kw in SERVE_ARTIFACTS:
+        ese = kw.get('val_ensamble', False)
+        t = time.time()
+        blob = export_inference(run, SIZE, SIZE, **kw)
+        art = os.path.join(work, f'{name}.mmlft')
+        with open(art, 'wb') as f:
+            f.write(blob)
+        export_s = time.time() - t
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine(art)
+        server = make_server(engine, '127.0.0.1', 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            status, health, _ = _http(port, 'GET', '/healthz')
+            shape = None if 'tiled' in kw else [SIZE, SIZE]
+            if status != 200 or health['fixed_shape'] != shape or \
+                    (ese and health['calibration']['status'] != 'unchecked'):
+                raise AssertionError(f'serve {name}: /healthz {status} '
+                                     f'{health}')
+            out = os.path.join(work, f'out_{name}')
+            req = {'out_dir': out}
+            req.update({'scene_dirs': [scene, scene_b]} if 'batch' in kw
+                       else {'scene_dir': scene})
+            if not ese:
+                req['train_shift'] = SERVE_SHIFT
+            times = []
+            for k in range(1 + SERVE_REQUESTS[ese]):
+                status, resp, wall = _http(port, 'POST', '/infer', req)
+                if status != 200:
+                    raise AssertionError(f'serve {name}: request {k} gave '
+                                         f'{status} {resp}')
+                if k:
+                    times.append((resp['runtime_s'], wall))
+            n_ese += (1 + SERVE_REQUESTS[ese]) if ese else 0
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        scenes = resp['scenes'] if 'batch' in kw else [resp]
+        means = [pfm.load(os.path.join(
+            out, s['scene'] if 'batch' in kw else '', 'result.pfm'))
+            for s in scenes]
+        for s, m in zip(scenes, means):
+            if m.shape != (SIZE, SIZE) or not np.isfinite(m).all() or \
+                    not math.isfinite(s['mse']):
+                raise AssertionError(f'serve {name}: result.pfm {m.shape}, '
+                                     f'mse {s["mse"]}')
+        rt = statistics.median(r for r, _ in times)
+        wall = statistics.median(w for _, w in times)
+        host = statistics.median(w - r for r, w in times)
+        results[name] = {'means': means, 'resp': scenes[0], 'runtime_s': rt,
+                         'wall_s': wall, 'host_s': host, 'peak': peak}
+        log(f'serve {name}: {len(blob) / 1e6:.1f} MB artifact exported in '
+            f'{export_s:.2f} s; {len(times)} timed requests after one '
+            f'warm-up: median runtime_s {rt:.4f} s, HTTP wall {wall:.4f} s, '
+            f'host share (wall - runtime_s) {host:.4f} s; runtime_s '
+            f'{[r for r, _ in times]}, wall {[round(w, 4) for _, w in times]};'
+            f' peak device memory {peak / 2**30:.3f} GiB; card {card}')
+
+    counts = read_launches(M)
+    want = {'window_gather': 0, 'fused_double_conv_fwd': 0,
+            'fused_double_conv_bwd': 0, 'laplace_mixture_posterior': n_ese}
+    if counts != want:
+        raise AssertionError(f'serve launched {counts}, expected {want}')
+
+    ref = results['upr']['means'][0]
+    diffs = {}
+    for name in ('upr_u8', 'upr_b2', 'upr_tiled'):
+        diffs[name] = max(float(np.abs(m - ref).max())
+                          for m in results[name]['means'])
+    diffs['ese'] = float(np.abs(results['ese']['means'][0]
+                                - main_run['result']).max())
+    bad = {k: v for k, v in diffs.items() if not v <= SERVE_TOL}
+    if bad:
+        raise AssertionError(f'serve: max |d mean| {bad} > {SERVE_TOL} '
+                             f'(u8, batch-2, tiled against fp32; ESE '
+                             f'against phase main)')
+    rel = {}
+    for key, main_key in (('mse', 'mse'), ('badpix_007', 'badpix')):
+        want_v = main_run['metrics'][main_key]
+        got_v = results['ese']['resp'][key]
+        rel[key] = abs(got_v - want_v) / max(abs(want_v), 1e-30)
+        if not rel[key] <= SERVE_REL:
+            raise AssertionError(f'serve ese: {key} {got_v} against phase '
+                                 f'main\'s {want_v} (rel {rel[key]:.2e} > '
+                                 f'{SERVE_REL})')
+    log('serve: max |d mean| ' + ', '.join(
+        f'{k} {v:.3e}' for k, v in diffs.items())
+        + f' (limit {SERVE_TOL}; u8 / batch-2 / tiled against fp32 at '
+        f'train_shift {SERVE_SHIFT}, ESE against phase main at 0.0); ESE '
+        f'mse / badpix_007 against phase main: rel '
+        f'{rel["mse"]:.2e} / {rel["badpix_007"]:.2e} (limit {SERVE_REL}); '
+        f'mixture posterior launches {counts["laplace_mixture_posterior"]} '
+        f'for {n_ese} ESE requests')
+    return {'launches': counts['laplace_mixture_posterior'],
+            'results': results}
+
+
 def phase_member_time() -> None:
     """Device time of one warm full-width ESE member (shift + forward) at
     the whole 512² scene and at one 310² ``--val_tile 256`` window, for the
@@ -970,6 +1149,24 @@ def phase_breakdown(run: str, val: str) -> None:
         f'{t_d2h:.3f} s')
 
 
+def random_checkpoint(run: str) -> None:
+    """A full-width UPR checkpoint (BatchNorm included) with seeded random
+    weights that keep the net input-sensitive, for ``chip_smoke.py
+    serve``."""
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
+    from mmlf_tpu_torch.utils.convert import save_checkpoint_pt
+
+    cfg = Config(model_uncert=True).finalize()
+    model = init_live_(FeedForward.from_config(cfg), seed=0)
+    os.makedirs(run)
+    save_checkpoint_pt(os.path.join(run, 'checkpoint.pt'),
+                       model.state_dict(), cfg)
+    log(f'checkpoint: full width (chs {cfg.model_chs}, '
+        f'{cfg.model_in_blocks}+{cfg.model_out_blocks} blocks), seeded '
+        f'random weights')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -996,7 +1193,7 @@ def main() -> int:
     log(f'card: {card}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, {torch.cuda.device_count()} device(s)')
     mode = sys.argv[1:]
-    if mode not in ([], ['k3'], ['k2']):
+    if mode not in ([], ['k3'], ['k2'], ['serve']):
         print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
         return 2
 
@@ -1023,8 +1220,14 @@ def main() -> int:
 
     work = os.path.join(REPO, 'build', 'chip_smoke')
     shutil.rmtree(work, ignore_errors=True)
-    train, val = phase_data(work)
     run = os.path.join(work, 'run')
+    if mode == ['serve']:
+        _, val = phase_data(work, n_train=0)
+        random_checkpoint(run)
+        main_run = phase_main(M, run, val)
+        phase_serve(M, run, val, main_run, card)
+        return 0
+    train, val = phase_data(work)
     train_run = phase_train(M, train, val, run, TRAIN_STEPS)
     gather = phase_window_gather(W, train_run['pipeline'], train_run['size'])
     s_step, k1_launches = train_run['s_step'], \
@@ -1066,6 +1269,12 @@ def main() -> int:
         f'{main_run["peak_bytes"] / 2**30:.3f} GiB; --val_tile {VAL_TILE} '
         f'{tiled_run["s_per_scene"]:.3f} s/scene, '
         f'{tiled_run["peak_bytes"] / 2**30:.3f} GiB')
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_run = phase_serve(M, run, val, main_run, card)
+    del serve_run['results']
+    gc.collect()
+    torch.cuda.empty_cache()
     k2 = phase_kernel(K)
     kern = k2[K2_CASES[0]]
     phase_member_time()
@@ -1089,7 +1298,9 @@ def main() -> int:
         'route': 'cuda',
         'source': 'mmlf_tpu_torch/csrc/posterior.cu',
         'replaces': 'mmlf_tpu/ops/pallas/posterior.py:48',
-        'launches': main_run['launches'],
+        # the main path's runs: validate whole and tiled, then serve
+        'launches': (main_run['launches'] + tiled_run['launches']
+                     + serve_run['launches']),
         'max_abs_err': max([r['max_abs_err'] for r in k2.values()]
                            + [main_run['max_abs_err']]),
         'ms': kern['ms'],

@@ -15,13 +15,14 @@ from __future__ import annotations
 
 import copy
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 
 from ..ops.masks import create_mask_texture
 from ..utils import pfm
-from ..utils.imgio import load_img, save_img
+from ..utils.imgio import load_img, load_img_u8, save_img
 from ..utils.lf import save_views
 
 # filename substrings that disqualify an image from being a view
@@ -67,14 +68,33 @@ def _pick_gt_pfm(scene: str, nviews) -> Optional[str]:
 
 
 def load_scene(scene: str, nviews=(9, 9), index: int = 0,
-               texture_mask: bool = True):
-    """Load one scene directory into the 9-tuple sample (numpy float32)."""
+               texture_mask: bool = True, raw_views: bool = False,
+               threads: int = 0):
+    """Load one scene directory into the 9-tuple sample (numpy float32).
+
+    ``raw_views=True`` keeps the four view stacks as raw uint8 (the u8
+    serving ingest normalizes them on the device); the centre is still
+    float32 in [0, 1].  ``threads > 0`` decodes each needed view once (the
+    four stacks share the centre view) on a thread pool of that size (PIL
+    releases the GIL while it decodes).
+    """
     imgs = _list_view_files(scene)
     hs, vs, inc, dec = cross_indices(nviews)
+    load_one = load_img_u8 if raw_views else load_img
+
+    if threads > 0:
+        needed = sorted({i for idx in (hs, vs, inc, dec) for i in idx})
+        with ThreadPoolExecutor(threads) as pool:
+            decoded = dict(zip(needed, pool.map(
+                lambda i: load_one(os.path.join(scene, imgs[i])), needed)))
+    else:
+        decoded = {}
 
     def stack(idx: Sequence[int]) -> np.ndarray:
-        return np.stack([load_img(os.path.join(scene, imgs[i]))[..., :3]
-                         for i in idx]).astype(np.float32)
+        out = np.stack([(decoded[i] if i in decoded else
+                         load_one(os.path.join(scene, imgs[i])))[..., :3]
+                        for i in idx])
+        return out if raw_views else out.astype(np.float32)
 
     h_views = stack(hs)
     v_views = stack(vs)
@@ -82,6 +102,8 @@ def load_scene(scene: str, nviews=(9, 9), index: int = 0,
     d_views = stack(dec)
 
     center = v_views[nviews[1] // 2].astype(np.float32)
+    if raw_views:
+        center = center / 255.0
 
     gt_path = _pick_gt_pfm(scene, nviews)
     if gt_path is not None:

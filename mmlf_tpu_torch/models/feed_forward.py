@@ -138,7 +138,7 @@ class FeedForward(nn.Module):
         for flag, item in (('model_unet', 'models/unet.py'),
                            ('model_inn', 'the INN'),
                            ('model_invertible', 'the INN'),
-                           ('bf16', 'analysis CLIs')):
+                           ('bf16', 'item 11, training options')):
             if getattr(cfg, flag, False):
                 raise NotImplementedError(
                     f'{flag} is not ported to mmlf_tpu_torch yet '

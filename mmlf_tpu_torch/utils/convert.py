@@ -41,6 +41,9 @@ def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
     if cfg.get('model_unet'):
         raise NotImplementedError('U-Net weights are not ported yet '
                                   '(ROADMAP.md, Queue 1: models/unet.py)')
+    if cfg.get('model_inn'):
+        raise NotImplementedError('INN weights are not ported yet '
+                                  '(ROADMAP.md, Queue 1: the INN)')
     params = variables['params']
     stats = variables.get('batch_stats', {})
     sd: Dict[str, torch.Tensor] = {}

@@ -2,7 +2,7 @@
 
 ``save_img`` auto-normalizes values outside [0, 1], accepts ``(H, W)``
 grayscale or channel-first/-last RGB, and writes 8-bit.  ``load_img``
-returns float32 in [0, 1], channel-last.
+returns float32 in [0, 1], channel-last; ``load_img_u8`` the raw bytes.
 """
 
 from __future__ import annotations
@@ -20,6 +20,17 @@ def load_img(path: str) -> np.ndarray:
     if arr.dtype == np.uint16:
         return arr.astype(np.float32) / 65535.0
     return arr.astype(np.float32)
+
+
+def load_img_u8(path: str) -> np.ndarray:
+    """Load an 8-bit image as raw uint8, ``(H, W, C)`` or ``(H, W)``, for
+    the u8 serving ingest (normalized on the device)."""
+    with Image.open(path) as im:
+        arr = np.asarray(im)
+    if arr.dtype != np.uint8:
+        raise ValueError(f'{path}: u8 ingest needs 8-bit views, '
+                         f'got {arr.dtype}')
+    return arr
 
 
 def save_img(path: str, arr) -> None:

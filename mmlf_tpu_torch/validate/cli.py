@@ -24,12 +24,12 @@ receptive radius, 25 px at full width) the members, and so the metrics,
 differ slightly from the whole-scene run, as in the JAX package.
 
 Runs on the card by default (``--device cuda``) in float32 with TF32 off,
-and raises when CUDA is asked for but absent.  Reads a reference-format
-``checkpoint.pt``.  Not ported yet (each raises NotImplementedError):
-``--mesh_space``, ``--mesh_ensemble``, U-Net / INN / invertible
-checkpoints, and run directories holding only the JAX package's
-``checkpoint.msgpack``.  ``--jax_cache`` has no counterpart: nothing is
-compiled per scene here.
+and raises when CUDA is asked for but absent.  Reads the JAX package's
+``checkpoint.msgpack`` (with its ``hyper_parameters.json``) first, as
+``mmlf_tpu.validate.cli`` does, else a reference-format ``checkpoint.pt``.
+Not ported yet (each raises NotImplementedError): ``--mesh_space``,
+``--mesh_ensemble``, U-Net / INN / invertible and bf16 checkpoints.
+``--jax_cache`` has no counterpart: nothing is compiled per scene here.
 """
 
 from __future__ import annotations
@@ -51,15 +51,13 @@ from ..models.ensemble import ensemble_forward, ensemble_grid
 from ..models.feed_forward import FeedForward
 from ..ops.codecs import mpi_to_weights
 from ..ops.masks import create_mask_margin
-from ..utils.convert import load_checkpoint_pt
+from ..train.checkpoint import CKPT_MSGPACK, CKPT_PT, load_checkpoint_raw
+from ..utils.convert import load_checkpoint_pt, state_dict_from_jax
 from ..utils.device import resolve_device
 from ..utils.fold_bn import fold_batchnorm
 from . import calibrate
 from . import posteriors as P
 from .tiling import receptive_radius, tiled_forward
-
-CKPT_PT = 'checkpoint.pt'
-CKPT_MSGPACK = 'checkpoint.msgpack'
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -69,14 +67,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def load_model_state(output_dir: str):
-    """Load ``(state_dict, stored_config_dict)`` from ``checkpoint.pt``."""
+    """Load ``(state_dict, stored_config_dict)`` from the JAX package's
+    ``checkpoint.msgpack`` (its ``params`` and ``batch_stats`` mapped onto
+    the port's keys) or, failing that, a reference-format
+    ``checkpoint.pt``."""
+    if os.path.exists(os.path.join(output_dir, CKPT_MSGPACK)):
+        tree, _, hyper = load_checkpoint_raw(output_dir)
+        variables = {'params': tree['params'],
+                     'batch_stats': tree.get('batch_stats', {})}
+        return state_dict_from_jax(variables, hyper), hyper
     pt = os.path.join(output_dir, CKPT_PT)
     if os.path.exists(pt):
         return load_checkpoint_pt(pt)
-    if os.path.exists(os.path.join(output_dir, CKPT_MSGPACK)):
-        raise _not_ported(f'reading {CKPT_MSGPACK}',
-                          'Queue 1: checkpoint.msgpack reading')
-    raise FileNotFoundError(f'no {CKPT_PT} in {output_dir}')
+    raise FileNotFoundError(
+        f'no {CKPT_MSGPACK} or {CKPT_PT} in {output_dir}')
 
 
 def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,

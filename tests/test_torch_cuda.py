@@ -417,3 +417,54 @@ def test_conv_block_refused_launch_raises(cuda):
     got = C.fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, True, True)
     want = C.plain_double_conv_fwd(x, si, ti, w1, b1, w2, b2, True, True)
     _assert_rel(got[0], want[0], 'y2')
+
+
+def test_served_ensemble_on_card_matches_cpu(cuda, tmp_path):
+    """An ESE artifact served by an engine on the card against one on the
+    CPU, K2 launched once per request, with the tolerances of
+    ``test_ensemble_on_card_matches_cpu``."""
+    from mmlf_tpu_torch.data.synth import generate_dataset
+    from mmlf_tpu_torch.export import export_inference, load_exported
+    from mmlf_tpu_torch.serve import InferenceEngine
+    from mmlf_tpu_torch.utils import pfm
+    from mmlf_tpu_torch.utils.convert import save_checkpoint_pt
+
+    cfg = Config(model_chs=8, model_views=9, model_in_blocks=1,
+                 model_out_blocks=2, model_uncert=True).finalize()
+    model = init_live_(FeedForward.from_config(cfg), seed=3)
+    run = tmp_path / 'run'
+    run.mkdir()
+    save_checkpoint_pt(str(run / 'checkpoint.pt'), model.state_dict(), cfg)
+    generate_dataset(str(tmp_path / 'data'), scenes=1, size=48, seed=2)
+    scene = str(tmp_path / 'data' / 'scene_00')
+    blob = export_inference(str(run), 48, 48, val_ensamble=True,
+                            members=True)
+    art = tmp_path / 'ese.mmlft'
+    art.write_bytes(blob)
+
+    outs = {}
+    for dev in ('cpu', 'cuda'):
+        engine = InferenceEngine(str(art), device=dev)
+        before = K.laplace_mixture_posterior.launches
+        for k in range(2):
+            resp = engine.infer(scene, out_dir=str(tmp_path / f'{dev}{k}'))
+        assert K.laplace_mixture_posterior.launches == before + \
+            (2 if dev == 'cuda' else 0)
+        outs[dev] = [pfm.load(str(tmp_path / f'{dev}1' / f'{name}.pfm'))
+                     for name in ('result', 'uncert')] + [resp]
+    (mean_c, lv_c, resp_c), (mean_g, lv_g, resp_g) = outs['cpu'], \
+        outs['cuda']
+    assert (np.abs(mean_g - mean_c) < 5e-4).mean() >= 0.999
+    np.testing.assert_allclose(lv_g, lv_c, atol=5e-4)
+    assert resp_g['mse'] == pytest.approx(resp_c['mse'], rel=1e-3)
+
+    rng = np.random.default_rng(6)
+    stacks = [rng.random((1, 9, 48, 48, 3), dtype=np.float32)
+              for _ in range(4)]
+    want = load_exported(blob, 'cpu')[0](*stacks)
+    got = load_exported(blob, 'cuda')[0](*stacks)
+    for key in ('means', 'logvars'):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
+                                   atol=5e-4)
+    torch.testing.assert_close(got['posterior'].cpu(), want['posterior'],
+                               rtol=1e-3, atol=1e-4)

@@ -18,13 +18,16 @@ import importlib, pkgutil, sys
 import mmlf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mmlf_tpu_torch.__path__,
                                                'mmlf_tpu_torch.')]
-assert 'mmlf_tpu_torch.validate.tiling' in names
+assert {'mmlf_tpu_torch.validate.tiling', 'mmlf_tpu_torch.export',
+        'mmlf_tpu_torch.serve', 'mmlf_tpu_torch.utils.msgpack'} <= set(names)
 for name in names:
     importlib.import_module(name)
 from mmlf_tpu_torch.ops.kernels import build
 bad = sorted(k for k in sys.modules
-             if k in ('jax', 'flax', 'optax', 'triton', 'mmlf_tpu')
-             or k.startswith(('jax.', 'flax.', 'optax.', 'mmlf_tpu.')))
+             if k in ('jax', 'flax', 'optax', 'msgpack', 'triton',
+                      'mmlf_tpu')
+             or k.startswith(('jax.', 'flax.', 'optax.', 'msgpack.',
+                              'mmlf_tpu.')))
 assert not bad, bad
 assert build.load.cache_info().currsize == 0, 'a kernel was loaded'
 print(len(names))
@@ -36,15 +39,17 @@ def test_port_imports_no_jax_or_mmlf_tpu():
     proc = subprocess.run([sys.executable, '-c', _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 41
 
 
-# an import of jax/flax/optax/mmlf_tpu (not mmlf_tpu_torch), in statement
-# or string form; docstrings may still name the JAX counterpart of a module
+# an import of jax/flax/optax/msgpack/mmlf_tpu (not mmlf_tpu_torch), in
+# statement or string form; docstrings may still name the JAX counterpart
+# of a module
 _FORBIDDEN = re.compile(
-    r'^\s*(?:from|import)\s+(?:jax|flax|optax|mmlf_tpu(?!_torch))\b'
-    r'|import_module\(\s*[\'"](?:jax|flax|optax|mmlf_tpu(?!_torch))\b'
-    r'|__import__\(\s*[\'"](?:jax|flax|optax|mmlf_tpu(?!_torch))\b',
+    r'^\s*(?:from|import)\s+(?:jax|flax|optax|msgpack|mmlf_tpu(?!_torch))\b'
+    r'|import_module\(\s*[\'"](?:jax|flax|optax|msgpack|mmlf_tpu(?!_torch))'
+    r'\b'
+    r'|__import__\(\s*[\'"](?:jax|flax|optax|msgpack|mmlf_tpu(?!_torch))\b',
     re.MULTILINE)
 
 
@@ -57,7 +62,7 @@ def test_sources_have_no_forbidden_imports():
                     text = fh.read()
                 assert not _FORBIDDEN.search(text), os.path.join(root, f)
                 scanned += 1
-    assert scanned >= 20
+    assert scanned >= 42
     with open(os.path.join(REPO, 'chip_smoke.py')) as fh:
         assert not _FORBIDDEN.search(fh.read()), 'chip_smoke.py'
 
@@ -67,7 +72,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
         pytest.skip('this machine has CUDA; the test is for one without')
     from click.testing import CliRunner
 
+    from mmlf_tpu_torch import serve
     from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.export import load_exported
     from mmlf_tpu_torch.train import cli as train_cli
     from mmlf_tpu_torch.train.loop import train
     from mmlf_tpu_torch.validate.cli import main, run_validation
@@ -84,6 +91,14 @@ def test_entry_points_raise_without_cuda(tmp_path):
         train(Config().finalize(), str(tmp_path))
     res = CliRunner().invoke(train_cli.main, [str(tmp_path),
                                               '--model_uncert'])
+    assert isinstance(res.exception, RuntimeError), res.output
+    assert 'CUDA is not available' in str(res.exception)
+
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        serve.InferenceEngine(str(tmp_path))
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        load_exported(b'MMLFPT01')
+    res = CliRunner().invoke(serve.main, [str(tmp_path), '--no_warmup'])
     assert isinstance(res.exception, RuntimeError), res.output
     assert 'CUDA is not available' in str(res.exception)
 
@@ -137,3 +152,30 @@ def test_train_cli_has_the_jax_flags():
     assert names - {'jax_cache'} <= set(flags)
     assert 'jax_cache' not in flags and flags['device'] == 'cuda'
     assert flags['train_accum'] == 1 and flags['val_interval'] == 100
+
+
+def _jax_flags(*path):
+    with open(os.path.join(REPO, 'mmlf_tpu', *path)) as fh:
+        return set(re.findall(r"@click\.option\('--([a-z0-9_]+)", fh.read()))
+
+
+def test_export_and_serve_clis_have_the_jax_flags():
+    """The export CLI: every flag of mmlf_tpu.export but --platforms and
+    --jax_cache (nothing is lowered or compiled), with its default.  The
+    serve CLI: every flag of mmlf_tpu.serve but --jax_cache, plus --device
+    (default cuda)."""
+    from mmlf_tpu_torch import export, serve
+    for cli, path, dropped in (
+            (export.main, ('export.py',), {'platforms', 'jax_cache'}),
+            (serve.main, ('serve.py',), {'jax_cache'})):
+        names = _jax_flags(*path)
+        flags = {p.name: p.default for p in cli.params}
+        assert dropped <= names
+        assert names - dropped <= set(flags), path
+        assert not dropped & set(flags), path
+    flags = {p.name: p.default for p in export.main.params}
+    assert flags['height'] == 512 and flags['batch'] == 1 and \
+        flags['tiled'] == 0 and flags['val_disp_step'] == 0.1
+    flags = {p.name: p.default for p in serve.main.params}
+    assert flags['device'] == 'cuda' and flags['port'] == 8417 and \
+        flags['decode_threads'] == 8 and flags['host'] == '127.0.0.1'

@@ -6,7 +6,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from mmlf_tpu.config import Config as JConfig
 from mmlf_tpu.data.synth import generate_dataset
@@ -88,10 +87,3 @@ def test_unported_options_raise(kw, dataset, tmp_path):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         run_validation(str(tmp_path), dataset, val_ensamble=True,
                        device='cpu', **kw)
-
-
-def test_msgpack_only_run_dir_raises(dataset, tmp_path):
-    open(os.path.join(tmp_path, 'checkpoint.msgpack'), 'wb').close()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        run_validation(str(tmp_path), dataset, device='cpu')
-    assert torch.get_default_dtype() == torch.float32
