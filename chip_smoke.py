@@ -6,6 +6,8 @@
     python3 chip_smoke.py k2       # card, build and the K2 phase only
     python3 chip_smoke.py serve    # card, build, the val scene, a seeded
                                    # full-width checkpoint, main and serve
+    python3 chip_smoke.py bf16     # card, build, data and the bf16 phases
+                                   # (7b-7e, 10b)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -40,6 +42,19 @@ Phases, in order; any failure exits non-zero and prints no result:
              (3xTF32 on the tensor cores; the FFMA bound as context) and,
              as context, the port's plain ConvBlock (cuDNN) forward and
              backward;
+7b. train_bf16 — the recipe with ``--bf16 --cache_bf16`` (a bf16 trunk on
+             cuDNN's bf16 convs, K1 cutting bf16 image windows) for
+             TRAIN_STEPS steps, checked as train (K1's bf16 instance
+             launched steps × accum times);
+7c. K1 bf16 — phase K1 on the bf16 cache of train_bf16;
+7d. train_bf16_trunk — the same with ``--pallas_trunk``: K3's bf16
+             instance forward and backward 20 × accum × steps times each;
+7e. K3 bf16 — K3's bf16 instance against its plain version evaluated in
+             float64 (the same rounding points) on dyadic inputs at the
+             recipe's blocks, each output within 4x the float32 plain
+             version's error (fp32 convs, TF32 off, on bf16-rounded
+             operands; ``k3_bf16_check``); times, the bound at the dense
+             bf16 tensor-core peak and cuDNN's bf16 ConvBlock as context;
 8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
@@ -57,6 +72,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              ESE result.pfm and metrics against phase main's, and K2 once
              per ESE request; prints median runtime_s, HTTP wall, host
              share and peak memory for each;
+10b. bf16_eval — ESE validation of train_bf16_trunk's checkpoint (the bf16
+             trunk on BN-folded weights, K2 once), its member means
+             against the same weights in fp32 (BF16_MEMBER_PX), and one
+             UPR request to its exported artifact over HTTP;
 11. K2     — the mixture posterior at the whole scene's P = 512² and one
              tile's P = 310² (K = Kb = 70), and at 512² with
              ``--val_disp_step 0.05``'s K = Kb = 141: within TOL of its
@@ -73,7 +92,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 The weights start random (seeded) and train a few steps, so the accuracy
 numbers printed mean nothing; the run shows that the port builds, agrees
 with its plain versions and runs the main path's train step (plain and
-``--pallas_trunk``), its validation and its serving on the card.
+``--pallas_trunk``, each in float32 and in bfloat16), its validation and
+its serving on the card.
 Imports nothing of JAX or of mmlf_tpu.
 """
 
@@ -101,10 +121,11 @@ RECIPE = ['--train_shift', '2.5', '--train_lr', '1e-3', '--train_bs', '512',
           '--train_ps', '96', '--train_warm_start', '--model_uncert',
           '--train_accum', '8']
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores, TF32 FLOP/s of the tensor cores
+# outside the tensor cores, TF32 and bf16 FLOP/s of the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 # an fp32-accurate product in 3xTF32 (hi*hi' + hi*lo' + lo*hi') costs three
 # TF32 products: the least time of K3's GEMMs on this card
 PEAK_3XTF32 = PEAK_TF32 / 3
@@ -118,6 +139,11 @@ TOL = dict(rtol=1e-4, atol=1e-6)
 K2_PREC_FACTOR = 4.0
 # the validate CLI's metrics
 METRICS = ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll')
+# a bf16 checkpoint's ESE member means against the same weights run in
+# fp32: the largest difference, in pixels of disparity, below the BadPix
+# threshold of 0.07 (each of the ~22 bf16 convs and BN affines rounds at
+# 2^-9 relative; a loose sanity bound, not a parity test)
+BF16_MEMBER_PX = 0.05
 # --val_tile of phase main_tiled, and its halo: the trunk's receptive
 # radius 2 * (3 + 8) plus the ensemble's ceil(3.5) + 1
 VAL_TILE = 256
@@ -217,21 +243,37 @@ def conv_flop_per_pixel() -> int:
 
 
 def counters(M) -> dict:
-    """Every kernel wrapper of the port, by name (each counts its
-    launches in ``.launches``)."""
-    return {'window_gather': M.W.window_gather,
-            'fused_double_conv_fwd': M.C.fused_double_conv_fwd,
-            'fused_double_conv_bwd': M.C.fused_double_conv_bwd,
-            'laplace_mixture_posterior': M.K.laplace_mixture_posterior}
+    """Every kernel instance of the port, by name: ``(wrapper, count
+    attribute)`` (float32 instances count in ``.launches``, bfloat16 ones
+    in ``.launches_bf16``)."""
+    return {'window_gather': (M.W.window_gather, 'launches'),
+            'window_gather_bf16': (M.W.window_gather, 'launches_bf16'),
+            'fused_double_conv_fwd': (M.C.fused_double_conv_fwd, 'launches'),
+            'fused_double_conv_bwd': (M.C.fused_double_conv_bwd, 'launches'),
+            'fused_double_conv_fwd_bf16': (M.C.fused_double_conv_fwd,
+                                           'launches_bf16'),
+            'fused_double_conv_bwd_bf16': (M.C.fused_double_conv_bwd,
+                                           'launches_bf16'),
+            'laplace_mixture_posterior': (M.K.laplace_mixture_posterior,
+                                          'launches')}
 
 
 def reset_launches(M) -> None:
-    for fn in counters(M).values():
-        fn.launches = 0
+    for fn, attr in counters(M).values():
+        setattr(fn, attr, 0)
 
 
 def read_launches(M) -> dict:
-    return {name: fn.launches for name, fn in counters(M).items()}
+    return {name: getattr(fn, attr) for name, (fn, attr)
+            in counters(M).items()}
+
+
+def expected(M, **launches) -> dict:
+    """The counts of ``read_launches`` with ``launches`` and every other
+    instance at 0."""
+    want = dict.fromkeys(counters(M), 0)
+    want.update(launches)
+    return want
 
 
 def check_close(got, want, what: str) -> float:
@@ -377,12 +419,14 @@ def phase_data(work: str, n_train: int = TRAIN_SCENES):
     return train, val
 
 
-def window_gather_bound(b: int, win: int, ci: int, with_mpi: bool):
+def window_gather_bound(b: int, win: int, ci: int, with_mpi: bool,
+                        img_bytes: int = 4):
     """Least time for K1: every selected window byte read once and written
-    once, over the HBM rate (a copy has no arithmetic)."""
+    once, over the HBM rate (a copy has no arithmetic); the image field has
+    ``img_bytes`` an element (2 under --cache_bf16), aux and mpi 4."""
     from mmlf_tpu_torch.ops.kernels.window_gather import AUX_CH, MPI_CH
-    ch = ci + AUX_CH + (MPI_CH if with_mpi else 0)
-    n_bytes = 2 * 4 * b * win * win * ch
+    per_pixel = img_bytes * ci + 4 * (AUX_CH + (MPI_CH if with_mpi else 0))
+    n_bytes = 2 * b * win * win * per_pixel
     return n_bytes / PEAK_BYTES * 1e3, n_bytes
 
 
@@ -408,9 +452,11 @@ def check_gather(W, cache, batch, win, what: str) -> float:
 
 
 def phase_train(M, train: str, val: str, run: str, steps: int,
-                trunk: bool = False) -> dict:
+                trunk: bool = False, bf16: bool = False) -> dict:
     """The README UPR recipe through the train CLI (with ``--pallas_trunk``
-    when ``trunk``), then K1 against its plain version on the run's own
+    when ``trunk``; with ``--bf16 --cache_bf16`` when ``bf16``: a bf16
+    trunk, through K3's bf16 instance under ``trunk``, and K1 cutting bf16
+    image windows), then K1 against its plain version on the run's own
     last batch.  ``M`` holds the kernel modules."""
     import numpy as np
     import torch
@@ -431,6 +477,8 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
             *RECIPE, '--train_steps', str(steps), '--train_nan_guard']
     if trunk:
         args.append('--pallas_trunk')
+    if bf16:
+        args += ['--bf16', '--cache_bf16']
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(M)
@@ -444,8 +492,10 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
 
     accum = int(RECIPE[RECIPE.index('--train_accum') + 1])
     k3 = TRUNK_BLOCKS * accum * steps if trunk else 0
-    want = {'window_gather': steps * accum, 'fused_double_conv_fwd': k3,
-            'fused_double_conv_bwd': k3, 'laplace_mixture_posterior': 0}
+    sfx = '_bf16' if bf16 else ''
+    want = expected(M, **{f'window_gather{sfx}': steps * accum,
+                          f'fused_double_conv_fwd{sfx}': k3,
+                          f'fused_double_conv_bwd{sfx}': k3})
     if launches != want:
         raise AssertionError(f'launches {launches} in {steps} steps x '
                              f'{accum} microbatches, expected {want}')
@@ -458,9 +508,11 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
         raise AssertionError(f'log.csv rows {rows}')
     ckpt = torch.load(os.path.join(run, 'checkpoint.pt'),
                       map_location='cpu', weights_only=True)
+    hyper = ckpt['hyper_parameters']
     if ckpt['iteration'] != steps or \
             ckpt['optimizer_state_dict'] is None or \
-            ckpt['hyper_parameters']['pallas_trunk'] != trunk:
+            hyper['pallas_trunk'] != trunk or hyper['bf16'] != bf16 or \
+            hyper['cache_bf16'] != bf16:
         raise AssertionError('checkpoint.pt does not hold the final step')
     del state
 
@@ -473,7 +525,7 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
                                                   (c + 1) * size),
                      pipe.win, f'train batch chunk {c}')
 
-    name = 'train_trunk' if trunk else 'train'
+    name = 'train' + ('_bf16' if bf16 else '') + ('_trunk' if trunk else '')
     bs = int(RECIPE[RECIPE.index('--train_bs') + 1])
     ps = int(RECIPE[RECIPE.index('--train_ps') + 1])
     steady = [r[5] for r in rows[1:]]
@@ -482,7 +534,8 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
     log(f'{name}: {steps} steps of bs {bs} ({accum} x {size}), ps {ps}, '
         f'in {wall:.1f} s CLI wall; steady steps {steady} s, '
         f'{s_step:.3f} s/step, {bs / s_step:.1f} patches/s, '
-        f'{flop / s_step / 1e12:.1f} TFLOP/s conv fwd+bwd fp32 '
+        f'{flop / s_step / 1e12:.1f} TFLOP/s conv fwd+bwd '
+        f'{"bf16" if bf16 else "fp32"} '
         f'({flop / 1e12:.1f} TFLOP/step, 3 x forward), peak device memory '
         f'{peak / 2**30:.2f} GiB, launches {launches}, losses '
         f'{[r[1] for r in rows]}')
@@ -500,6 +553,8 @@ def phase_window_gather(W, pipe, size: int) -> dict:
     from mmlf_tpu_torch.data.pipeline import gather_augment
 
     cache, win, ps = pipe.cache, pipe.win, pipe.ps
+    img_bytes = cache.img[0].element_size()
+    name = 'window_gather' + ('_bf16' if img_bytes == 2 else '')
     for _ in range(100):
         batch = pipe.sample_batch(size)
         if len(set(batch.factor.tolist())) == len(cache.img):
@@ -517,9 +572,10 @@ def phase_window_gather(W, pipe, size: int) -> dict:
                      reps=20)
         plain_ms = cuda_ms(lambda: W.plain_window_gather(
             cache.img, cache.aux, cache.mpi, index, win, with_mpi), reps=5)
-        bound_ms, n_bytes = window_gather_bound(size, win, ci, with_mpi)
+        bound_ms, n_bytes = window_gather_bound(size, win, ci, with_mpi,
+                                                img_bytes)
         out[with_mpi] = (ms, plain_ms, bound_ms)
-        log(f'kernel window_gather B={size} win={win} CI={ci} '
+        log(f'kernel {name} B={size} win={win} CI={ci} '
             f'with_mpi={with_mpi}: {ms:.4f} ms, plain {plain_ms:.3f} ms, '
             f'bound {bound_ms:.4f} ms (bytes: {n_bytes / 1e9:.3f} GB at '
             f'{PEAK_BYTES / 1e12:.2f} TB/s), '
@@ -550,7 +606,7 @@ def phase_window_gather(W, pipe, size: int) -> dict:
     one_level_ms = cuda_ms(lambda: W.window_gather(
         cache.img, cache.aux, cache.mpi, *index0, win, with_mpi=False),
         reps=20)
-    log(f'kernel window_gather one-level batch: {one_level_ms:.4f} ms, '
+    log(f'kernel {name} one-level batch: {one_level_ms:.4f} ms, '
         f'advanced indexing (img + aux) {library_ms:.4f} ms')
 
     aug_ms = cuda_ms(lambda: gather_augment(cache, batch, ps, win,
@@ -559,7 +615,8 @@ def phase_window_gather(W, pipe, size: int) -> dict:
     for _ in range(5):
         pipe.sample_batch(size * 8)
     sampler_s = (time.perf_counter() - t) / 5
-    log(f'input path per microbatch of {size}: gather + augmentation '
+    log(f'input path ({name}) per microbatch of {size}: gather + '
+        f'augmentation '
         f'{aug_ms:.3f} ms (K1 {out[False][0]:.4f} ms of it); host sampler '
         f'{sampler_s * 1e3:.1f} ms per batch of {size * 8}')
     ms, plain_ms, bound_ms = out[False]
@@ -590,22 +647,25 @@ def k3_inputs(b, h, w, cin, cout, seed):
     return x, si, ti, w1, b1, w2, b2, dy2, dps, dpss
 
 
-def k3_bound(b, h, w, cin, cout, peak=PEAK_3XTF32):
+def k3_bound(b, h, w, cin, cout, peak=PEAK_3XTF32, eb=4):
     """Least times of K3 on the card, ``((fwd ms, by), (bwd ms, by))``.
     Operations: the forward's two k=2 convs (to (H+1)x(W+1) and HxW); the
     backward's five (y1 again, two dgrads, two wgrads), 2 FLOP per
     multiply-add at ``peak`` (fp32-accurate products: 3xTF32 on the tensor
-    cores; ``PEAK_FP32`` gives the FFMA bound as context).  Bytes: each
-    input read once, each output written once (fwd: x, y2; bwd: x, y2, dy2,
-    dx; plus weights)."""
+    cores; ``PEAK_FP32`` gives the FFMA bound as context; the bf16
+    instance's products at ``PEAK_BF16``).  Bytes: each input read once,
+    each output written once (fwd: x, y2; bwd: x, y2, dy2, dx; plus
+    weights), ``eb`` bytes an activation or weight element (2 for bf16),
+    4 a vector element."""
     p1, p0 = b * (h + 1) * (w + 1), b * h * w
     c1, c2 = 2 * 4 * cin * cout, 2 * 4 * cout * cout
     ops_f = p1 * c1 + p0 * c2
     ops_b = 2 * p1 * c1 + p1 * c2 + p0 * c1 + p0 * c2
     act_in, act_out = b * cin * h * w, b * cout * h * w
-    params = 4 * cin * cout + 4 * cout * cout + 2 * cin + 2 * cout
-    by_f = 4 * (act_in + act_out + params + 2 * cout)
-    by_b = 4 * (2 * act_in + 2 * act_out + 2 * params + 2 * cout)
+    weights, vectors = 4 * cin * cout + 4 * cout * cout, 2 * cin + 2 * cout
+    by_f = eb * (act_in + act_out + weights) + 4 * (vectors + 2 * cout)
+    by_b = eb * (2 * act_in + 2 * act_out + 2 * weights) + \
+        4 * (2 * vectors + 2 * cout)
 
     def bound(ops, n_bytes):
         t_ops, t_bytes = ops / peak, n_bytes / PEAK_BYTES
@@ -702,83 +762,149 @@ def k3_breakdown(C, fa, ba) -> None:
             + '; '.join(f'{k[:60]} x{n} {ms:.3f}' for k, ms, n in rows[:8]))
 
 
-def phase_conv_block(M) -> dict:
-    """K3's precision on real-valued inputs (``k3_precision``), then K3
-    forward and backward against their plain versions at the recipe's
-    block shapes (B 64, 96²), with the times of kernel, plain version and
-    the port's plain ConvBlock (cuDNN fwd and autograd bwd); the totals
-    over one microbatch's 20 blocks go into the kernels line."""
+def k3_bf16_check(got, plain, ref, what: str) -> float:
+    """K3's bf16 instance against its plain version evaluated in float64
+    (``ref``: bf16 activations, float64 parameters, the same rounding
+    points, every sum in float64), beside the float32 plain version
+    (``plain``: fp32 convs, TF32 off).  A later fp32 sum may put a value
+    the other side of a bf16 rounding boundary (y2, g2, dy1's bf16 copy,
+    dx) and a flipped dy1 moves the dgrad over it, which cuDNN's fp32 dgrad
+    does to ~0.04% of dx at 280->280.  So the max error against ``ref``
+    must stay within K3_PREC_FACTOR x the float32 plain version's (floored
+    at one ulp of the largest magnitude in the output's dtype), and the
+    share of bf16 elements more than one ulp (at most 2^-7 of the
+    magnitude) off within the float32 plain version's (floored at 1e-5).
+    Returns the kernel's max abs error against ``ref``."""
     import torch
-    from mmlf_tpu_torch.models.feed_forward import conv_block
+
+    def errors(t):
+        d = (t.double() - ref.double()).abs()
+        off = 0.0
+        if t.dtype == torch.bfloat16:
+            off = float((d > 2.0 ** -7 * ref.double().abs() + 1e-12)
+                        .double().mean())
+        return float(d.max()), off
+
+    (e_k, s_k), (e_p, s_p) = errors(got), errors(plain)
+    ulp = 2.0 ** (-8 if got.dtype == torch.bfloat16 else -24)
+    floor = ulp * float(ref.abs().max())
+    if got.dtype != plain.dtype or e_k > K3_PREC_FACTOR * max(e_p, floor) \
+            or s_k > max(s_p, 1e-5):
+        raise AssertionError(
+            f'{what}: error vs float64 {e_k:.3e} (fp32 plain {e_p:.3e}), '
+            f'share beyond one ulp {s_k:.2e} (fp32 plain {s_p:.2e})')
+    return e_k
+
+
+def phase_conv_block(M, bf16: bool = False) -> dict:
+    """K3's precision on real-valued inputs (``k3_precision``, float32),
+    then K3 forward and backward against their plain versions at the
+    recipe's block shapes (B 64, 96²), with the times of kernel, plain
+    version and the port's plain ConvBlock (cuDNN fwd and autograd bwd);
+    the totals over one microbatch's 20 blocks go into the kernels line.
+    ``bf16``: the bf16 instance on bf16 canvases at the recipe's blocks,
+    held by ``k3_bf16_check`` against the plain version evaluated in
+    float64 (the max abs error reported is against that evaluation), its
+    bound at the dense bf16 tensor-core
+    peak, and cuDNN's bf16 ConvBlock (the port's ``--bf16`` plain block)
+    as context."""
+    import torch
+    from mmlf_tpu_torch.models.feed_forward import _block_bf16, conv_block
 
     C = M.C
-    for size in ((64, 96, 96), (3, 13, 17)):
-        res = k3_precision(C, *size, 280, 280, seed=sum(size))
-        log(f'K3 precision 280->280 B={size[0]} {size[1]}x{size[2]} '
-            f'(real-valued, relu_in False, y1 > 0): max abs err vs float64, '
-            f'kernel / fp32 plain: '
-            + ', '.join(f'{k} {e:.2e}/{p:.2e}' for k, (e, p) in res.items())
-            + f' (limit {K3_PREC_FACTOR}x)')
+    tag = ' bf16' if bf16 else ''
+    if not bf16:
+        for size in ((64, 96, 96), (3, 13, 17)):
+            res = k3_precision(C, *size, 280, 280, seed=sum(size))
+            log(f'K3 precision 280->280 B={size[0]} {size[1]}x{size[2]} '
+                f'(real-valued, relu_in False, y1 > 0): max abs err vs '
+                f'float64, kernel / fp32 plain: '
+                + ', '.join(f'{k} {e:.2e}/{p:.2e}'
+                            for k, (e, p) in res.items())
+                + f' (limit {K3_PREC_FACTOR}x)')
     torch.cuda.empty_cache()
     b, h, w = 64, 96, 96
     out = {'fwd': dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, n=0),
            'bwd': dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, n=0)}
     by = {kind: {'operations': 0.0, 'bytes': 0.0} for kind in out}
     for (cin, cout, relu_in, affine_in), n in K3_BLOCKS:
+        if bf16 and not n:
+            continue                 # the bf16 phase times the recipe's
         x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = k3_inputs(
             b, h, w, cin, cout, seed=cin + cout)
+        if bf16:
+            x, dy2 = x.bfloat16(), dy2.bfloat16()
         fa = (x, si, ti, w1, b1, w2, b2, relu_in, affine_in)
         got = C.fused_double_conv_fwd(*fa)
         want = C.plain_double_conv_fwd(*fa)
-        y2 = want[0]
+        dbl = [a.double() for a in (si, ti, w1, b1, w2, b2, dps, dpss)]
+        ref = C.plain_double_conv_fwd(x, *dbl[:6], relu_in, affine_in) \
+            if bf16 else want
+        y2 = ref[0] if bf16 else want[0]
         ba = (x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, relu_in, affine_in)
         got_b = C.fused_double_conv_bwd(*ba)
         want_b = C.plain_double_conv_bwd(*ba)
+        ref_b = C.plain_double_conv_bwd(
+            x, *dbl[:5], y2, dy2, *dbl[6:], relu_in, affine_in) \
+            if bf16 else want_b
         torch.cuda.synchronize()
         errs = {}
-        for kind, g_, w_, names in (
-                ('fwd', got, want, ('y2', 'ps', 'pss')),
-                ('bwd', got_b, want_b, ('dx', 'dsi', 'dti', 'dw1', 'db1',
-                                        'dw2', 'db2'))):
-            for g, wt, name in zip(g_, w_, names):
-                err = float((g - wt).abs().max())
-                scale = float(wt.abs().max())
-                if err > K3_REL * scale:
-                    raise AssertionError(
-                        f'K3 {kind} {cin}->{cout} {name}: max abs err '
-                        f'{err:.3e} > {K3_REL} x max |plain| {scale:.3e}')
+        for kind, g_, w_, r_, names in (
+                ('fwd', got, want, ref, ('y2', 'ps', 'pss')),
+                ('bwd', got_b, want_b, ref_b, ('dx', 'dsi', 'dti', 'dw1',
+                                               'db1', 'dw2', 'db2'))):
+            for g, wt, r, name in zip(g_, w_, r_, names):
+                scale = float(r.abs().max())
+                what = f'K3{tag} {kind} {cin}->{cout} {name}'
+                if bf16:
+                    err = k3_bf16_check(g, wt, r, what)
+                else:
+                    err = float((g - wt).abs().max())
+                    if err > K3_REL * scale:
+                        raise AssertionError(
+                            f'{what}: max abs err {err:.3e} > {K3_REL} x '
+                            f'max |plain| {scale:.3e}')
                 errs[name] = err / scale if scale else 0.0
                 out[kind]['err'] = max(out[kind]['err'], err)
-        del got, got_b, want_b
+        del got, got_b, want_b, ref, ref_b, dbl
 
         ms_f = cuda_ms(lambda: C.fused_double_conv_fwd(*fa), reps=5)
         ms_b = cuda_ms(lambda: C.fused_double_conv_bwd(*ba), reps=5)
         plain_f = cuda_ms(lambda: C.plain_double_conv_fwd(*fa), reps=5)
         plain_b = cuda_ms(lambda: C.plain_double_conv_bwd(*ba), reps=5)
-        (bound_f, by_f), (bound_b, by_b) = k3_bound(b, h, w, cin, cout)
-        (ffma_f, _), (ffma_b, _) = k3_bound(b, h, w, cin, cout, PEAK_FP32)
+        if bf16:
+            (bound_f, by_f), (bound_b, by_b) = k3_bound(
+                b, h, w, cin, cout, PEAK_BF16, eb=2)
+            context = ''
+        else:
+            (bound_f, by_f), (bound_b, by_b) = k3_bound(b, h, w, cin, cout)
+            (ffma_f, _), (ffma_b, _) = k3_bound(b, h, w, cin, cout,
+                                                PEAK_FP32)
+            context = f'; FFMA bound {ffma_f:.3f} / {ffma_b:.3f} ms'
 
         # context: the port's plain ConvBlock (conv, relu, conv, BN, relu)
-        # through cuDNN, forward and autograd backward
+        # through cuDNN, forward and autograd backward (bf16: as --bf16
+        # runs it)
         blk = conv_block(cin, cout, 2, True).cuda().train()
         xb = x.clone().requires_grad_()
-        cudnn_f = cuda_ms(lambda: blk(xb), reps=5)
+
+        def cudnn_fwd():
+            return _block_bf16(blk, xb) if bf16 else blk(xb)
+        cudnn_f = cuda_ms(cudnn_fwd, reps=5)
 
         def fwd_bwd():
-            y = blk(xb)
-            y.backward(dy2)
+            cudnn_fwd().backward(dy2)
         cudnn_fb = cuda_ms(fwd_bwd, reps=5)
         del blk, xb
         if (cin, cout) == (280, 280):
             k3_breakdown(C, fa, ba)
-        log(f'kernel fused_double_conv {cin}->{cout} B={b} {h}x{w} '
+        log(f'kernel fused_double_conv{tag} {cin}->{cout} B={b} {h}x{w} '
             f'(relu_in {relu_in}, affine_in {affine_in}): fwd {ms_f:.3f} ms '
-            f'(bound {bound_f:.3f} ms, {by_f}, 3xTF32; FFMA bound '
-            f'{ffma_f:.3f} ms; plain {plain_f:.3f} ms), '
-            f'bwd {ms_b:.3f} ms (bound {bound_b:.3f} ms, {by_b}; FFMA bound '
-            f'{ffma_b:.3f} ms; plain '
-            f'{plain_b:.3f} ms); cuDNN ConvBlock fwd {cudnn_f:.3f} ms, '
-            f'bwd {cudnn_fb - cudnn_f:.3f} ms; max err / max |plain| '
+            f'(bound {bound_f:.3f} ms, {by_f}; plain {plain_f:.3f} ms), '
+            f'bwd {ms_b:.3f} ms (bound {bound_b:.3f} ms, {by_b}; plain '
+            f'{plain_b:.3f} ms){context}; cuDNN{tag} ConvBlock fwd '
+            f'{cudnn_f:.3f} ms, bwd {cudnn_fb - cudnn_f:.3f} ms; max err / '
+            f'max |plain| '
             + ', '.join(f'{k} {v:.1e}' for k, v in errs.items()))
         for kind, ms, plain, bound, bound_by in (
                 ('fwd', ms_f, plain_f, bound_f, by_f),
@@ -793,9 +919,9 @@ def phase_conv_block(M) -> dict:
     for kind in ('fwd', 'bwd'):
         o = out[kind]
         o['bound_by'] = max(by[kind], key=by[kind].get)
-        log(f'kernel fused_double_conv_{kind}: one microbatch\'s {o["n"]} '
-            f'blocks {o["ms"]:.2f} ms, plain {o["plain_ms"]:.2f} ms, bound '
-            f'{o["bound_ms"]:.2f} ms (mostly {o["bound_by"]})')
+        log(f'kernel fused_double_conv_{kind}{tag}: one microbatch\'s '
+            f'{o["n"]} blocks {o["ms"]:.2f} ms, plain {o["plain_ms"]:.2f} '
+            f'ms, bound {o["bound_ms"]:.2f} ms (mostly {o["bound_by"]})')
     return out
 
 
@@ -820,9 +946,7 @@ def phase_main(M, run: str, val: str) -> dict:
     for key in METRICS:
         if not math.isfinite(result[key]):
             raise AssertionError(f'metric {key} = {result[key]}')
-    if counts != {'window_gather': 0, 'fused_double_conv_fwd': 0,
-                  'fused_double_conv_bwd': 0,
-                  'laplace_mixture_posterior': 1}:
+    if counts != expected(M, laplace_mixture_posterior=1):
         raise AssertionError(f'ESE validate of 1 scene launched {counts}')
     scene = os.path.join(run, 'scenes', 'scene_00')
     for f in ('result.pfm', 'result.png', 'uncert.pfm', 'gt.pfm',
@@ -894,9 +1018,7 @@ def phase_main_tiled(M, run: str, val: str, gmm_whole,
     for key in METRICS:
         if not math.isfinite(result[key]):
             raise AssertionError(f'tiled metric {key} = {result[key]}')
-    if counts != {'window_gather': 0, 'fused_double_conv_fwd': 0,
-                  'fused_double_conv_bwd': 0,
-                  'laplace_mixture_posterior': n_tiles}:
+    if counts != expected(M, laplace_mixture_posterior=n_tiles):
         raise AssertionError(f'tiled ESE validate of 1 scene in {n_tiles} '
                              f'tiles launched {counts}')
     gmm = np.load(os.path.join(run, 'scenes', 'scene_00', 'gmm.npy'))
@@ -1048,8 +1170,7 @@ def phase_serve(M, run: str, val: str, main_run: dict, card: str) -> dict:
             f' peak device memory {peak / 2**30:.3f} GiB; card {card}')
 
     counts = read_launches(M)
-    want = {'window_gather': 0, 'fused_double_conv_fwd': 0,
-            'fused_double_conv_bwd': 0, 'laplace_mixture_posterior': n_ese}
+    want = expected(M, laplace_mixture_posterior=n_ese)
     if counts != want:
         raise AssertionError(f'serve launched {counts}, expected {want}')
 
@@ -1084,6 +1205,117 @@ def phase_serve(M, run: str, val: str, main_run: dict, card: str) -> dict:
         f'for {n_ese} ESE requests')
     return {'launches': counts['laplace_mixture_posterior'],
             'results': results}
+
+
+def phase_bf16_eval(M, run: str, val: str, card: str) -> dict:
+    """ESE validate of the bf16 trunk run's checkpoint (its stored config
+    has ``bf16``: the 70 members run the bf16 trunk on the BN-folded
+    weights, K2 and the metrics stay fp32), K2 once; the same weights with
+    ``bf16`` off, whose member means must lie within BF16_MEMBER_PX of the
+    bf16 ones; then one UPR request served from the checkpoint's exported
+    artifact over HTTP after one warm-up."""
+    import threading
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.export import export_inference
+    from mmlf_tpu_torch.models.ensemble import ensemble_grid
+    from mmlf_tpu_torch.serve import InferenceEngine, make_server
+    from mmlf_tpu_torch.utils import pfm
+    from mmlf_tpu_torch.validate import cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(M)
+    t = time.time()
+    result = cli.main([run, val, '--val_ensamble'], standalone_mode=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_launches(M)
+    peak = torch.cuda.max_memory_allocated()
+    for key in METRICS:
+        if not math.isfinite(result[key]):
+            raise AssertionError(f'bf16 metric {key} = {result[key]}')
+    if counts != expected(M, laplace_mixture_posterior=1):
+        raise AssertionError(f'bf16 ESE validate of 1 scene launched '
+                             f'{counts}')
+    gmm = np.load(os.path.join(run, 'scenes', 'scene_00', 'gmm.npy'))
+
+    # the same weights evaluated in float32
+    ref = os.path.join(os.path.dirname(run), 'run_bf16_as_fp32')
+    os.makedirs(ref)
+    ckpt = torch.load(os.path.join(run, 'checkpoint.pt'), map_location='cpu',
+                      weights_only=True)
+    if not ckpt['hyper_parameters']['bf16']:
+        raise AssertionError('the bf16 run\'s checkpoint does not say bf16')
+    ckpt['hyper_parameters'] = dict(ckpt['hyper_parameters'], bf16=False)
+    torch.save(ckpt, os.path.join(ref, 'checkpoint.pt'))
+    result32 = cli.main([ref, val, '--val_ensamble'], standalone_mode=False)
+    gmm32 = np.load(os.path.join(ref, 'scenes', 'scene_00', 'gmm.npy'))
+    shifts = ensemble_grid(-3.5, 3.5, 0.1)[:, None, None]
+    diff = np.abs(gmm[0] - gmm32[0])
+    max_d, rms_d = float(diff.max()), float(np.sqrt(np.mean(diff ** 2.0)))
+    rms_net = float(np.sqrt(np.mean((gmm32[0] - shifts) ** 2.0)))
+    if not max_d <= BF16_MEMBER_PX:
+        raise AssertionError(f'bf16 members vs the same weights in fp32: '
+                             f'max difference {max_d:.4e} px > '
+                             f'{BF16_MEMBER_PX}')
+    log(f'bf16_eval: ESE validate of the bf16 trunk checkpoint '
+        f'{result["runtime"]:.3f} s/scene (CLI runtime), {wall:.3f} s CLI '
+        f'wall, peak device memory {peak / 2**30:.3f} GiB, mixture '
+        f'posterior launches {counts["laplace_mixture_posterior"]}; metrics '
+        + json.dumps({k: result[k] for k in METRICS}) + '; the same weights '
+        f'in fp32: {result32["runtime"]:.3f} s/scene, member means max / '
+        f'RMS difference {max_d:.4e} / {rms_d:.4e} px (limit '
+        f'{BF16_MEMBER_PX} px; RMS net output {rms_net:.4e}), metrics minus '
+        f'the fp32 ones '
+        + json.dumps({k: result[k] - result32[k] for k in METRICS}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one UPR request to the served artifact of the bf16 checkpoint
+    work = os.path.join(os.path.dirname(run), 'serve_bf16')
+    os.makedirs(work)
+    blob = export_inference(run, SIZE, SIZE)
+    art = os.path.join(work, 'upr_bf16.mmlft')
+    with open(art, 'wb') as f:
+        f.write(blob)
+    reset_launches(M)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(art)
+    if engine.meta['dtype'] != 'bfloat16':
+        raise AssertionError(f'artifact dtype {engine.meta["dtype"]}')
+    server = make_server(engine, '127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out = os.path.join(work, 'out')
+    req = {'scene_dir': os.path.join(val, 'scene_00'), 'out_dir': out,
+           'train_shift': SERVE_SHIFT}
+    try:
+        port = server.server_address[1]
+        answers = [_http(port, 'POST', '/infer', req) for _ in range(2)]
+        torch.cuda.synchronize()
+        serve_peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    del engine
+    for status, resp, _ in answers:
+        if status != 200:
+            raise AssertionError(f'bf16 serve: {status} {resp}')
+    mean = pfm.load(os.path.join(out, 'result.pfm'))
+    if mean.shape != (SIZE, SIZE) or not np.isfinite(mean).all():
+        raise AssertionError(f'bf16 serve: result.pfm {mean.shape}')
+    if read_launches(M) != expected(M):
+        raise AssertionError(f'bf16 UPR request launched {read_launches(M)}')
+    _, resp, http_wall = answers[1]
+    log(f'bf16_serve: UPR request (train_shift {SERVE_SHIFT}) after one '
+        f'warm-up: runtime_s {resp["runtime_s"]:.4f} s, HTTP wall '
+        f'{http_wall:.4f} s, mse {resp["mse"]:.4f}, peak device memory '
+        f'{serve_peak / 2**30:.3f} GiB; card {card}')
+    return {'launches': counts['laplace_mixture_posterior'],
+            's_per_scene': result['runtime'], 'peak_bytes': peak}
 
 
 def phase_member_time() -> None:
@@ -1149,6 +1381,45 @@ def phase_breakdown(run: str, val: str) -> None:
         f'{t_d2h:.3f} s')
 
 
+def phase_bf16(M, train: str, val: str, work: str, card: str) -> dict:
+    """The bf16 phases: train_bf16 (the recipe with ``--bf16
+    --cache_bf16``: cuDNN's bf16 convs, K1 on bf16 image windows), K1's
+    bf16 instance at the recipe shape, train_bf16_trunk (the same with
+    ``--pallas_trunk``: K3's bf16 instance) and K3's bf16 card check.
+    Returns the kernels-line numbers and the trunk run's directory."""
+    import torch
+    train_run = phase_train(M, train, val, os.path.join(work, 'run_bf16'),
+                            TRAIN_STEPS, bf16=True)
+    gather = phase_window_gather(M.W, train_run['pipeline'],
+                                 train_run['size'])
+    k1 = train_run['launches']['window_gather_bf16']
+    s_plain, peak_plain = train_run['s_step'], train_run['peak']
+    del train_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = os.path.join(work, 'run_bf16_trunk')
+    trunk_run = phase_train(M, train, val, run, TRUNK_STEPS, trunk=True,
+                            bf16=True)
+    k1 += trunk_run['launches']['window_gather_bf16']
+    k3_launches = {kind: trunk_run['launches'][f'fused_double_conv_{kind}'
+                                               f'_bf16']
+                   for kind in ('fwd', 'bwd')}
+    trunk_s, trunk_peak = trunk_run['s_step'], trunk_run['peak']
+    del trunk_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3 = phase_conv_block(M, bf16=True)
+    accum = int(RECIPE[RECIPE.index('--train_accum') + 1])
+    log(f'bf16 steps: --bf16 --cache_bf16 {s_plain:.3f} s/step, '
+        f'{peak_plain / 2**30:.2f} GiB; with --pallas_trunk {trunk_s:.3f} '
+        f's/step, {trunk_peak / 2**30:.2f} GiB, of it K3 bf16 fwd '
+        f'{accum * k3["fwd"]["ms"] / 1e3 / trunk_s:.2%}, bwd '
+        f'{accum * k3["bwd"]["ms"] / 1e3 / trunk_s:.2%}; card {card}')
+    torch.cuda.empty_cache()
+    return {'gather': gather, 'k1_launches': k1, 'k3': k3,
+            'k3_launches': k3_launches, 'run': run}
+
+
 def random_checkpoint(run: str) -> None:
     """A full-width UPR checkpoint (BatchNorm included) with seeded random
     weights that keep the net input-sensitive, for ``chip_smoke.py
@@ -1193,7 +1464,7 @@ def main() -> int:
     log(f'card: {card}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, {torch.cuda.device_count()} device(s)')
     mode = sys.argv[1:]
-    if mode not in ([], ['k3'], ['k2'], ['serve']):
+    if mode not in ([], ['k3'], ['k2'], ['serve'], ['bf16']):
         print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
         return 2
 
@@ -1213,6 +1484,7 @@ def main() -> int:
         + k2_instances(build.ptxas_report('posterior')))
     if mode == ['k3']:
         phase_conv_block(M)
+        phase_conv_block(M, bf16=True)
         return 0
     if mode == ['k2']:
         phase_kernel(K)
@@ -1228,6 +1500,10 @@ def main() -> int:
         phase_serve(M, run, val, main_run, card)
         return 0
     train, val = phase_data(work)
+    if mode == ['bf16']:
+        bf16 = phase_bf16(M, train, val, work, card)
+        phase_bf16_eval(M, bf16['run'], val, card)
+        return 0
     train_run = phase_train(M, train, val, run, TRAIN_STEPS)
     gather = phase_window_gather(W, train_run['pipeline'], train_run['size'])
     s_step, k1_launches = train_run['s_step'], \
@@ -1257,6 +1533,7 @@ def main() -> int:
         f's/step (plain trunk {s_step:.3f} s/step); peak device memory '
         f'{trunk_peak / 2**30:.2f} GiB')
     torch.cuda.empty_cache()
+    bf16 = phase_bf16(M, train, val, work, card)
 
     main_run = phase_main(M, run, val)
     gmm_whole = main_run.pop('gmm')
@@ -1273,6 +1550,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_run = phase_serve(M, run, val, main_run, card)
     del serve_run['results']
+    gc.collect()
+    torch.cuda.empty_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_eval = phase_bf16_eval(M, bf16['run'], val, card)
     gc.collect()
     torch.cuda.empty_cache()
     k2 = phase_kernel(K)
@@ -1294,13 +1576,26 @@ def main() -> int:
         'bound_by': gather['bound_by'],
         'library_ms': gather['library_ms'],
     }, {
+        'name': 'window_gather_bf16',
+        'route': 'cuda',
+        'source': 'mmlf_tpu_torch/csrc/window_gather.cu',
+        'replaces': 'mmlf_tpu/ops/pallas/window_gather.py:94',
+        'launches': bf16['k1_launches'],
+        'max_abs_err': bf16['gather']['max_abs_err'],
+        'ms': bf16['gather']['ms'],
+        'plain_ms': bf16['gather']['plain_ms'],
+        'bound_ms': bf16['gather']['bound_ms'],
+        'bound_by': bf16['gather']['bound_by'],
+        'library_ms': bf16['gather']['library_ms'],
+    }, {
         'name': 'laplace_mixture_posterior',
         'route': 'cuda',
         'source': 'mmlf_tpu_torch/csrc/posterior.cu',
         'replaces': 'mmlf_tpu/ops/pallas/posterior.py:48',
-        # the main path's runs: validate whole and tiled, then serve
+        # the main path's runs: validate whole and tiled, serve, and the
+        # bf16 checkpoint's validate
         'launches': (main_run['launches'] + tiled_run['launches']
-                     + serve_run['launches']),
+                     + serve_run['launches'] + bf16_eval['launches']),
         'max_abs_err': max([r['max_abs_err'] for r in k2.values()]
                            + [main_run['max_abs_err']]),
         'ms': kern['ms'],
@@ -1309,16 +1604,21 @@ def main() -> int:
         'bound_by': kern['bound_by'],
         'library_ms': None,          # no single PyTorch call computes it
     }]
-    # K3: times and bounds summed over one microbatch's 20 blocks
-    for kind, line in (('fwd', 436), ('bwd', 514)):
-        o = k3[kind]
+    # K3: times and bounds summed over one microbatch's 20 blocks, fp32
+    # then bf16
+    for (kind, line), sfx in ((k, s) for s in ('', '_bf16')
+                              for k in (('fwd', 436), ('bwd', 514))):
+        o = (bf16['k3'] if sfx else k3)[kind]
+        if sfx:
+            launches = bf16['k3_launches'][kind]
+        else:
+            launches = k3_launches if kind == 'fwd' else trunk_launches_bwd
         kernels.append({
-            'name': f'fused_double_conv_{kind}',
+            'name': f'fused_double_conv_{kind}{sfx}',
             'route': 'cuda',
             'source': 'mmlf_tpu_torch/csrc/conv_block.cu',
             'replaces': f'mmlf_tpu/ops/pallas/conv_block.py:{line}',
-            'launches': (k3_launches if kind == 'fwd'
-                         else trunk_launches_bwd),
+            'launches': launches,
             'max_abs_err': o['err'],
             'ms': o['ms'],
             'plain_ms': o['plain_ms'],

@@ -1,5 +1,6 @@
 // Fused double-conv trunk block (kernel K3), forward and backward, written
-// for Hopper's tensor cores in fp32-accurate 3xTF32.
+// for Hopper's tensor cores: float32 canvases in fp32-accurate 3xTF32, and
+// bfloat16 canvases (--bf16) in one bf16 product (see "bfloat16 instance").
 //
 // Replaces the Pallas TPU kernel mmlf_tpu/ops/pallas/conv_block.py:
 // fused_double_conv, forward _fwd / _fwd_kernel and backward
@@ -87,20 +88,82 @@
 //     copies in flight (without it the block would take ~0.57x as long),
 //     so the next step is copies that the fence does not wait for (bulk or
 //     TMA copies, which run in the async proxy).
+//
+// bfloat16 instance (the TPU kernel's native one: --bf16 --pallas_trunk).
+// The canvases x, y1, y2 and dx are bf16, the weights are rounded to bf16,
+// si, ti, the biases, the sums and the weight gradients stay fp32, and the
+// rounding points are the TPU kernel's:
+//   forward   z  = [relu](bf16(bf16(x * bf16(si)) + bf16(ti)))
+//             y1 = bf16(relu(W1 taps(z) + b1)),  y2 = bf16(acc2 + b2),
+//             ps, pss from the fp32 acc2 + b2 (before y2 is rounded);
+//   backward  g2 = dy2 + dps + 2 y2 dpss in fp32 (db2 sums it), rounded to
+//             bf16 for its products; dy1 = [y1 > 0] acc in fp32 (db1 sums
+//             it), rounded for its products; the input stage's relu' takes
+//             pre = x si + ti in fp32 with fp32 si, ti; dx = bf16(dz si).
+// Every GEMM takes bf16 operands in wgmma m64nNk16 .bf16 with fp32 sums:
+// one product where 3xTF32 takes three, so no split.  A stage is 32 k (one
+// 64-byte operand row holds 16 bf16 pairs), so the swizzled tiles and the
+// descriptors keep their byte layout.  A bf16 tap is 2 bytes, which
+// cp.async cannot copy, and a tap pair is 4-byte aligned only at an even
+// element index, so the producers copy the aligned 4-byte word that holds
+// each tap (and each gradient value of a wgrad) into a ring of words and
+// pick the halves by parity in the transform; the weights (K zero-padded
+// by the caller to whole stages) take 16-byte cp.async as in fp32.  A
+// ring of words for 32-deep stages leaves shared memory for 128-row tiles
+// only, so every bf16 tile has MI = 1.  (Plain loads of the taps make each
+// stage wait for them: the block then takes as long as the fp32 one
+// forward and 1.4x backward on an H100.  The weight-gradient producers
+// issue 34 copies a stage and take their addresses and index parities once
+// a stage: per copy, they spill up to 324 bytes and the 280 -> 280
+// backward takes twice as long.)
+// Bound on an H100 SXM: operations at the dense bf16 tensor-core peak, 989
+// TFLOP/s: 0.76 ms forward and 1.9 ms backward at 280 -> 280, B 64, 96x96.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;   // two warpgroups; a GEMM block has 2 x
-constexpr int BK = 16;         // GEMM depth of one stage
 constexpr int STAGES = 4;      // cp.async ring
 constexpr int NBUF = 3;        // operand buffers between producers and consumers
 // registers a thread, moved by setmaxnreg: 2 x 128 x (176 + 80) = 65536
 constexpr int CONSUMER_REGS = 176, PRODUCER_REGS = 80;
 constexpr int WGRAD_TARGET_BLOCKS = 2 * 132;
 constexpr long long WGRAD_MAX_CHUNK = 4096;   // pixels per wgrad partial
+
+// The two instances: the element of the canvases and operands, the GEMM
+// depth of a stage (64 bytes of an operand row) and the operand tiles a
+// side (3xTF32: hi and lo).  bf16 values are held as their 16 bits.
+struct Tf32x3 {
+  using T = float;
+  using R = float;               // an element of the cp.async ring
+  static constexpr int BK = 16;
+  static constexpr int NOP = 2;
+  // elements a row of the K-major GEMM weight (Cout, 4 Cin)
+  static __host__ __device__ int ldw(int cin) { return 4 * cin; }
+};
+
+struct Bf16 {
+  using T = uint16_t;
+  using R = uint32_t;            // the ring holds aligned bf16 pairs
+  static constexpr int BK = 32;
+  static constexpr int NOP = 1;
+  // K zero-padded to whole stages: Cin rounded up to 8 channels
+  static __host__ __device__ int ldw(int cin) { return 4 * ((cin + 7) / 8 * 8); }
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(uint16_t h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+__device__ __forceinline__ uint16_t f2bf(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float rbf(float v) { return to_f(f2bf(v)); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(uint16_t* p, float v) { *p = f2bf(v); }
 
 enum { IN_AFFINE = 1, IN_RELU = 2 };
 enum { EPI_BIAS = 0, EPI_BIAS_RELU = 1, EPI_MASK = 2 };
@@ -111,6 +174,20 @@ __device__ __forceinline__ float in_stage(float v, float s, float t,
   if (flags & IN_AFFINE) v = fmaf(v, s, t);
   if (flags & IN_RELU) v = fmaxf(v, 0.f);
   return v;
+}
+
+// The forward's input stage in the instance's arithmetic: bf16 rounds the
+// product and the sum (s, t are bf16 values there).
+template <class P>
+__device__ __forceinline__ float in_stage_fwd(float v, float s, float t,
+                                              int flags) {
+  if constexpr (P::NOP == 1) {
+    if (flags & IN_AFFINE) v = rbf(rbf(v * s) + t);
+    if (flags & IN_RELU) v = fmaxf(v, 0.f);
+    return v;
+  } else {
+    return in_stage(v, s, t, flags);
+  }
 }
 
 // (hi, lo) = (tf32(a), tf32(a - hi)), round to nearest, ties away.
@@ -127,14 +204,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // asynchronous copies to shared memory; zero fill when !valid (src is then
 // not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
@@ -303,6 +380,110 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[72], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// The same products with bf16 operands, m64nNk16: a 32-byte operand row
+// (16 k) per instruction, both operands K-major (no transpose).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[36], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+      "%36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[56], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "%56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[72], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, "
+      "%72, %73, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // One pixel's 2x2 input neighbourhood: its offset in x and which of the
 // four taps (0,0), (0,1), (1,0), (1,1) lie inside the image.  Offsets are
 // 32-bit: the host entry points refuse tensors of 2^31 elements or more.
@@ -335,56 +516,121 @@ struct Taps {
       cp_async4(dst + t * step, v ? x + o + off[t] : x, v);
     }
   }
+
+  // bf16: a 2-byte tap is not a cp.async size, and a tap pair (ix0,
+  // ix0 + 1) is 4-byte aligned only when its first element index is even.
+  // So each tap is copied as the aligned 4-byte word that holds it (the
+  // x base pointer is 4-byte aligned): per row, the words of taps 0 and 1
+  // (one word twice when the pair is aligned), to dst[0..3 step]; the
+  // transform picks the halves by parity (pair_taps).  A word is copied
+  // only when its tap lies inside, and then it lies in the allocation.
+  __device__ void copy(const uint16_t* __restrict__ x, int ci, int cin,
+                       int hw, int win, uint32_t* dst, int step) const {
+    const bool ok = ci < cin;
+    const int o = base + ci * hw;
+    const int off[4] = {0, 1, win, win + 1};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const bool v = ok && (inside >> t & 1);
+      cp_async4(dst + t * step, word_of(v ? x + o + off[t] : x), v);
+    }
+  }
+
+  __device__ static const uint32_t* word_of(const uint16_t* p) {
+    return reinterpret_cast<const uint32_t*>(
+        reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)3);
+  }
 };
+
+// The half of word w that holds the element of index parity `odd`.
+__device__ __forceinline__ uint16_t half_of(uint32_t w, int odd) {
+  return (uint16_t)(odd ? w >> 16 : w & 0xFFFFu);
+}
+
+// The four taps (0,0), (0,1), (1,0), (1,1) from their words w[0..3 step]
+// (Taps::copy, bf16), the tap (0,0) of element index parity `odd`.
+__device__ __forceinline__ void pair_taps(const uint32_t* w, int step,
+                                          int odd, int win, float (&v)[4]) {
+  const int odd1 = (odd + win) & 1;
+  v[0] = to_f(half_of(w[0], odd));
+  v[1] = to_f(half_of(w[step], odd ^ 1));
+  v[2] = to_f(half_of(w[2 * step], odd1));
+  v[3] = to_f(half_of(w[3 * step], odd1 ^ 1));
+}
+
+// One value into the ring: cp.async of the value for fp32, of the aligned
+// word that holds it for bf16.
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      bool valid) {
+  cp_async4(dst, src, valid);
+}
+
+__device__ __forceinline__ void copy1(uint32_t* dst, const uint16_t* src,
+                                      bool valid) {
+  cp_async4(dst, Taps::word_of(src), valid);
+}
 
 // Block tile: TM = 128 MI rows x TN columns, TN a multiple of 8 up to 256.
 // A block is four warpgroups: two consumers (each MI m64 x TN products of
 // wgmma and their fp32 sums) and two producers (the copies and the
 // transform), THREADS threads each side.
-template <int MI_, int TN_>
+template <int MI_, int TN_, class P_>
 struct Cfg {
-  static constexpr int MI = MI_, TN = TN_;
+  using P = P_;
+  using T = typename P::T;
+  using R = typename P::R;
+  static constexpr int MI = MI_, TN = TN_, BK = P::BK;
   static constexpr int TM = 128 * MI;
   static constexpr int ACC = TN / 2;               // fp32 sums a thread, m64
-  // operand tiles of one stage, floats: A hi, A lo (TM x 16), B hi, B lo
-  static constexpr int OPA = TM * BK, OPB = TN * BK;
-  static constexpr int OP = 2 * (OPA + OPB);
-  // cp.async ring, floats a slot: A (16 x TM, row stride TM + 1); B conv
-  // (TN x 16, row stride 20) or wgrad (16 x TN, row stride TN + 1)
-  static constexpr int RA = TM + 1, RB = TN + 1, RBC = BK + 4;
+  // operand tiles of one stage, 32-bit words (a row is 64 bytes: 16 tf32 or
+  // 16 bf16 pairs): A (TM rows), B (TN rows); hi and lo for 3xTF32
+  static constexpr int OPA = TM * 16, OPB = TN * 16;
+  static constexpr int OP = P::NOP * (OPA + OPB);
+  // cp.async ring, 4-byte entries a slot: A (BK x TM, row stride TM + 1:
+  // a tap, or the word that holds a bf16 tap); B conv (TN weight rows of
+  // a stage, 80 bytes apart) or wgrad (BK x TN, row stride TN + 1)
+  static constexpr int RA = TM + 1, RB = TN + 1, RBC = 20;
   static constexpr int RAW_A = BK * RA;
   static constexpr int RAW_B = TN * RBC > BK * RB ? TN * RBC : BK * RB;
-  static constexpr int MAIN = 4 * (NBUF * OP + STAGES * (RAW_A + RAW_B)) +
+  static constexpr int MAIN = 4 * NBUF * OP + 4 * STAGES * (RAW_A + RAW_B) +
                               STAGES * THREADS;
   static constexpr int OA = TM + 4;                // epilogue tile stride
   static constexpr int EPI = 4 * TN * OA;
   static constexpr int SMEM = MAIN > EPI ? MAIN : EPI;
+  static_assert(sizeof(R) == 4, "ring entries of 4 bytes");
   static_assert(TN % 8 == 0 && TN <= 256, "wgmma N");
   static_assert(SMEM <= 220 * 1024, "shared memory (+ si, ti)");
 };
 
-// 280 -> 144 + 144, 108 -> 112, 70 -> 72, 27 -> 32, 2 -> 8
-using Cfg144 = Cfg<1, 144>;
-using Cfg112 = Cfg<1, 112>;
-using Cfg72 = Cfg<2, 72>;
-using Cfg32 = Cfg<2, 32>;
-using Cfg8 = Cfg<2, 8>;
+// 280 -> 144 + 144, 108 -> 112, 70 -> 72, 27 -> 32, 2 -> 8.  The narrow
+// tiles take 256 rows in fp32; bf16's ring of 32-deep stages leaves room
+// for 128 only.
+template <class P>
+struct Tiles {
+  static constexpr int MIN = P::NOP == 2 ? 2 : 1;
+  using T144 = Cfg<1, 144, P>;
+  using T112 = Cfg<1, 112, P>;
+  using T72 = Cfg<MIN, 72, P>;
+  using T32 = Cfg<MIN, 32, P>;
+  using T8 = Cfg<MIN, 8, P>;
+};
 
 // Views of the dynamic shared memory: NBUF buffers of a stage's operand
 // tiles, the cp.async ring, the wgrad tap masks, si and ti, and the
 // epilogue's output tile over the first three.
 template <class C>
 struct Smem {
-  float* op;                   // [NBUF][A hi, A lo, B hi, B lo]
-  float* raw_a;
-  float* raw_b;
+  using R = typename C::R;
+  float* op;                   // [NBUF][A hi, (A lo), B hi, (B lo)]
+  R* raw_a;
+  R* raw_b;
   unsigned char* mask;
   float* out;
   float* st;                   // si, ti (affine input stage)
 
   __device__ explicit Smem(unsigned char* base) {
     op = reinterpret_cast<float*>(base);
-    raw_a = op + NBUF * C::OP;
+    raw_a = reinterpret_cast<R*>(op + NBUF * C::OP);
     raw_b = raw_a + STAGES * C::RAW_A;
     mask = reinterpret_cast<unsigned char*>(raw_b + STAGES * C::RAW_B);
     out = reinterpret_cast<float*>(base);
@@ -392,7 +638,9 @@ struct Smem {
   }
   __device__ float* a_hi(int buf) const { return op + buf * C::OP; }
   __device__ float* a_lo(int buf) const { return a_hi(buf) + C::OPA; }
-  __device__ float* b_hi(int buf) const { return a_lo(buf) + C::OPA; }
+  __device__ float* b_hi(int buf) const {
+    return a_hi(buf) + C::P::NOP * C::OPA;
+  }
   __device__ float* b_lo(int buf) const { return b_hi(buf) + C::OPB; }
 };
 
@@ -414,27 +662,41 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
-// One stage's products into t (overwritten): for each 8-deep half the two
-// cross terms lo*hi' and hi*lo', then the two hi*hi' terms.
+// One stage's products into t (overwritten).  3xTF32: for each 8-deep
+// half the two cross terms lo*hi' and hi*lo', then the two hi*hi' terms.
+// bf16: the two 16-deep halves.  A row is 64 bytes (16 words).
 template <class C>
 __device__ __forceinline__ void stage_products(const Smem<C>& sm, int buf,
                                                int wg,
                                                float (&t)[C::MI][C::ACC]) {
-  const uint64_t bh = op_desc(sm.b_hi(buf)), bl = op_desc(sm.b_lo(buf));
+  const uint64_t bh = op_desc(sm.b_hi(buf));
+  if constexpr (C::P::NOP == 1) {
 #pragma unroll
-  for (int mi = 0; mi < C::MI; ++mi) {
-    const int row0 = (wg * C::MI + mi) * 64;
-    const uint64_t ah = op_desc(sm.a_hi(buf) + row0 * BK);
-    const uint64_t al = op_desc(sm.a_lo(buf) + row0 * BK);
-    // +32 bytes (2 in descriptor units) = the second 8-deep half
+    for (int mi = 0; mi < C::MI; ++mi) {
+      const int row0 = (wg * C::MI + mi) * 64;
+      const uint64_t ah = op_desc(sm.a_hi(buf) + row0 * 16);
+      // +32 bytes (2 in descriptor units) = the second 16-deep half
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      wgmma_tf32(t[mi], al + 2 * h, bh + 2 * h, h);
-      wgmma_tf32(t[mi], ah + 2 * h, bl + 2 * h, 1);
+      for (int h = 0; h < 2; ++h)
+        wgmma_bf16(t[mi], ah + 2 * h, bh + 2 * h, h);
     }
+  } else {
+    const uint64_t bl = op_desc(sm.b_lo(buf));
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      wgmma_tf32(t[mi], ah + 2 * h, bh + 2 * h, 1);
+    for (int mi = 0; mi < C::MI; ++mi) {
+      const int row0 = (wg * C::MI + mi) * 64;
+      const uint64_t ah = op_desc(sm.a_hi(buf) + row0 * 16);
+      const uint64_t al = op_desc(sm.a_lo(buf) + row0 * 16);
+      // +32 bytes (2 in descriptor units) = the second 8-deep half
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        wgmma_tf32(t[mi], al + 2 * h, bh + 2 * h, h);
+        wgmma_tf32(t[mi], ah + 2 * h, bl + 2 * h, 1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma_tf32(t[mi], ah + 2 * h, bh + 2 * h, 1);
+    }
   }
 }
 
@@ -527,48 +789,61 @@ __device__ __forceinline__ void store_split4(float* hi, float* lo, int off,
   *reinterpret_cast<float4*>(lo + off) = l;
 }
 
-// conv2x2 operands: rows are pixels, k = ci*4 + tap, a stage is 4 input
-// channels.  Producer thread pt copies and transforms the 4 taps (one
-// 16-byte chunk of k) of pixel pt % TM in channels pt / TM + TPP j.  The
-// weight tile (TN x 16 k of the K-major (N, 4 Cin) weight) is copied 16
-// bytes a thread with k fastest (coalesced) and transformed with n fastest
-// (conflict-free).
+// A 16-bit value into its operand tile: element k of row `row` (bf16 pairs
+// share a 32-bit word, k even in the low half).
+__device__ __forceinline__ void put_bf16(float* tile, int row, int k,
+                                         uint16_t v) {
+  reinterpret_cast<uint16_t*>(tile)[2 * op_offset(row, k >> 1) + (k & 1)] = v;
+}
+
+// conv2x2 operands: rows are pixels, k = ci*4 + tap, a stage is BK / 4
+// input channels.  Producer thread pt copies and transforms the 4 taps of
+// pixel pt % TM in channels pt / TM + TPP j (fp32: the taps; bf16: the
+// aligned words that hold them, Taps::copy).  The weight tile (TN x BK of
+// the K-major (N, ldw) weight) is copied 16 bytes a thread with k fastest
+// (coalesced) and transformed with n fastest (conflict-free).
 template <class C>
 struct ConvLoader {
+  using T = typename C::T;
+  using R = typename C::R;
+  static constexpr int CPS = C::BK / 4;              // channels a stage
   static constexpr int TPP = THREADS / C::TM;        // threads per pixel
-  static constexpr int CPT = 4 / TPP;                // channels a thread
+  static constexpr int CPT = CPS / TPP;              // channels a thread
+  static constexpr int EPC = 16 / (int)sizeof(T);    // elements a chunk
   static constexpr int WPT = (4 * C::TN + THREADS - 1) / THREADS;
   const Smem<C>& sm;
-  const float* __restrict__ x;
-  const float* __restrict__ w;
+  const T* __restrict__ x;
+  const T* __restrict__ w;
   int flags, cin, hw, win, n_out, n0, pt, row, c0;
   Taps taps;
 
   __device__ void issue(int kt, int slot) const {
-    float* ra = sm.raw_a + slot * C::RAW_A;
+    R* ra = sm.raw_a + slot * C::RAW_A;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int c = c0 + TPP * j;
-      taps.copy(x, kt * 4 + c, cin, hw, win, ra + c * 4 * C::RA + row, C::RA);
+      taps.copy(x, kt * CPS + c, cin, hw, win, ra + c * 4 * C::RA + row,
+                C::RA);
     }
-    float* rb = sm.raw_b + slot * C::RAW_B;
+    R* rb = sm.raw_b + slot * C::RAW_B;
+    const int ldw = C::P::ldw(cin);
 #pragma unroll
     for (int i = 0; i < WPT; ++i) {
       const int e = pt + i * THREADS;
       if (e >= 4 * C::TN) break;
       const int n = e >> 2, c = e & 3;
-      const bool ok = kt * 4 + c < cin && n0 + n < n_out;
+      const int k = kt * C::BK + c * EPC;
+      const bool ok = k < ldw && n0 + n < n_out;
       cp_async16(rb + n * C::RBC + c * 4,
-                 ok ? w + (long long)(n0 + n) * 4 * cin + kt * BK + c * 4 : w,
-                 ok);
+                 ok ? w + (long long)(n0 + n) * ldw + k : w, ok);
     }
   }
 
   __device__ void transform(int kt, int slot, int buf) const {
-    const float* ra = sm.raw_a + slot * C::RAW_A;
+    const R* ra = sm.raw_a + slot * C::RAW_A;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      const int c = c0 + TPP * j, ci = kt * 4 + c;
+      const int c = c0 + TPP * j, ci = kt * CPS + c;
       const bool ok = ci < cin;
       float s = 1.f, t = 0.f;
       if ((flags & IN_AFFINE) && ok) {
@@ -576,39 +851,66 @@ struct ConvLoader {
         t = sm.st[cin + ci];
       }
       float v[4];
+      if constexpr (C::P::NOP == 1) {
+        pair_taps(ra + c * 4 * C::RA + row, C::RA, (taps.base + ci * hw) & 1,
+                  win, v);
+      } else {
+#pragma unroll
+        for (int tap = 0; tap < 4; ++tap)
+          v[tap] = ra[(c * 4 + tap) * C::RA + row];
+      }
 #pragma unroll
       for (int tap = 0; tap < 4; ++tap) {
         const bool in = ok && (taps.inside >> tap & 1);
-        v[tap] = in ? in_stage(ra[(c * 4 + tap) * C::RA + row], s, t, flags)
-                    : 0.f;
+        v[tap] = in ? in_stage_fwd<typename C::P>(v[tap], s, t, flags) : 0.f;
       }
-      store_split4(sm.a_hi(buf), sm.a_lo(buf), op_offset(row, c * 4), v);
+      if constexpr (C::P::NOP == 1) {
+        // k = 4c .. 4c + 3: two words of one 16-byte chunk
+        uint2 q;
+        q.x = f2bf(v[0]) | (uint32_t)f2bf(v[1]) << 16;
+        q.y = f2bf(v[2]) | (uint32_t)f2bf(v[3]) << 16;
+        *reinterpret_cast<uint2*>(sm.a_hi(buf) + op_offset(row, 2 * c)) = q;
+      } else {
+        store_split4(sm.a_hi(buf), sm.a_lo(buf), op_offset(row, c * 4), v);
+      }
     }
-    const float* rb = sm.raw_b + slot * C::RAW_B;
+    const R* rb = sm.raw_b + slot * C::RAW_B;
 #pragma unroll
     for (int i = 0; i < WPT; ++i) {
       const int e = pt + i * THREADS;
       if (e >= 4 * C::TN) break;
       const int n = e % C::TN, c = e / C::TN;
-      const float4 q = *reinterpret_cast<const float4*>(rb + n * C::RBC +
-                                                        c * 4);
-      const float v[4] = {q.x, q.y, q.z, q.w};
-      store_split4(sm.b_hi(buf), sm.b_lo(buf), op_offset(n, c * 4), v);
+      if constexpr (C::P::NOP == 1) {
+        // the weights are bf16 already: the chunk moves as it is
+        *reinterpret_cast<uint4*>(sm.b_hi(buf) + op_offset(n, c * 4)) =
+            *reinterpret_cast<const uint4*>(rb + n * C::RBC + c * 4);
+      } else {
+        const float4 q = *reinterpret_cast<const float4*>(rb + n * C::RBC +
+                                                          c * 4);
+        const float v[4] = {q.x, q.y, q.z, q.w};
+        store_split4(sm.b_hi(buf), sm.b_lo(buf), op_offset(n, c * 4), v);
+      }
     }
   }
 };
 
 // wgrad operands: rows are the im2col columns (ci, tap) from k0, k the
-// pixels of the chunk, 16 a stage.  Producer thread pt copies pixel lane
-// pt % 16 of channels pt / 16 + 16 j and of gradient channels pt / 16 +
-// 16 i; its tap mask for each slot waits in sm.mask until the transform.
+// pixels of the chunk, BK a stage.  Producer thread pt copies pixel lane
+// pt % BK of channels pt / BK + NG j and of gradient channels pt / BK +
+// NG i (bf16: the aligned words that hold them); its tap mask for each
+// slot (and, bf16, the parities of its x and g offsets) waits in sm.mask
+// until the transform.
 template <class C>
 struct WgradLoader {
-  static constexpr int APT = C::TM / 64;             // channels a thread
-  static constexpr int GPT = (C::TN + 15) / 16;
+  using T = typename C::T;
+  using R = typename C::R;
+  static constexpr int NG = THREADS / C::BK;         // lane groups
+  static constexpr int APT = C::TM / 4 / NG;         // channels a thread
+  static constexpr int GPT = (C::TN + NG - 1) / NG;
+  static_assert(NG % 2 == 0, "one index parity for all of a thread's rows");
   const Smem<C>& sm;
-  const float* __restrict__ g;
-  const float* __restrict__ x;
+  const T* __restrict__ g;
+  const T* __restrict__ x;
   int flags, cin, hin, win, ho, wo, n_out, n0, k0, pad, pt, p, q;
   long long m, m_end;
   int b, oy, ox;
@@ -617,26 +919,29 @@ struct WgradLoader {
     const bool pv = m < m_end;
     Taps taps;
     taps.at(b, oy, ox, cin, hin, win, pad, pv);
-    sm.mask[slot * THREADS + pt] = (unsigned char)taps.inside;
-    float* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
-#pragma unroll
-    for (int j = 0; j < APT; ++j) {
-      const int c = q + 16 * j;
-      taps.copy(x, k0 / 4 + c, cin, hin * win, win, ra + c * 4, 1);
-    }
-    float* rb = sm.raw_b + slot * C::RAW_B + p * C::RB;
     const int hwo = ho * wo;
     const long long gbase = (long long)b * n_out * hwo + oy * wo + ox;
+    sm.mask[slot * THREADS + pt] = (unsigned char)(
+        taps.inside | (taps.base & 1) << 4 | (int)(gbase & 1) << 5);
+    R* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
+#pragma unroll
+    for (int j = 0; j < APT; ++j) {
+      const int c = q + NG * j;
+      taps.copy(x, k0 / 4 + c, cin, hin * win, win, ra + c * 4, 1);
+    }
+    R* rb = sm.raw_b + slot * C::RAW_B + p * C::RB;
+    const T* gp = g + gbase + (long long)(n0 + q) * hwo;
 #pragma unroll
     for (int i = 0; i < GPT; ++i) {
-      const int n = q + 16 * i;
+      const int n = q + NG * i;
       if (n >= C::TN) break;
       const bool ok = pv && n0 + n < n_out;
-      cp_async4(rb + n, ok ? g + gbase + (long long)(n0 + n) * hwo : g, ok);
+      copy1(rb + n, ok ? gp : g, ok);
+      gp += (long long)NG * hwo;
     }
     // this thread's pixel of the next stage
-    m += BK;
-    ox += BK;
+    m += C::BK;
+    ox += C::BK;
     while (ox >= wo) {
       ox -= wo;
       if (++oy == ho) {
@@ -647,45 +952,68 @@ struct WgradLoader {
   }
 
   __device__ void transform(int, int slot, int buf) const {
-    const int inside = sm.mask[slot * THREADS + pt];
-    const float* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
+    const int bits = sm.mask[slot * THREADS + pt];
+    const int inside = bits & 15;
+    // bf16: index parities of the thread's x taps (ci = k0 / 4 + q + NG j)
+    // and gradients (n = q + NG i); NG is even, so one for every j or i
+    const int hwo = ho * wo;
+    const int odd_x = (bits >> 4 ^ (k0 / 4 + q) * hin * win) & 1;
+    const int odd_g = (bits >> 5 ^ (n0 + q) * hwo) & 1;
+    const R* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
     float* ahi = sm.a_hi(buf);
     float* alo = sm.a_lo(buf);
 #pragma unroll
     for (int j = 0; j < APT; ++j) {
-      const int c = q + 16 * j, ci = k0 / 4 + c;
+      const int c = q + NG * j, ci = k0 / 4 + c;
       const bool ok = ci < cin;
       float s = 1.f, t = 0.f;
       if ((flags & IN_AFFINE) && ok) {
         s = sm.st[ci];
         t = sm.st[cin + ci];
       }
+      float v[4];
+      if constexpr (C::P::NOP == 1) {
+        pair_taps(ra + c * 4, 1, odd_x, win, v);
+      } else {
+#pragma unroll
+        for (int tap = 0; tap < 4; ++tap) v[tap] = ra[c * 4 + tap];
+      }
 #pragma unroll
       for (int tap = 0; tap < 4; ++tap) {
         const bool in = ok && (inside >> tap & 1);
-        const float2 z =
-            split_tf32(in ? in_stage(ra[c * 4 + tap], s, t, flags) : 0.f);
-        const int off = op_offset(c * 4 + tap, p);
-        ahi[off] = z.x;
-        alo[off] = z.y;
+        const float z =
+            in ? in_stage_fwd<typename C::P>(v[tap], s, t, flags) : 0.f;
+        if constexpr (C::P::NOP == 1) {
+          put_bf16(ahi, c * 4 + tap, p, f2bf(z));
+        } else {
+          const float2 zs = split_tf32(z);
+          const int off = op_offset(c * 4 + tap, p);
+          ahi[off] = zs.x;
+          alo[off] = zs.y;
+        }
       }
     }
-    const float* rb = sm.raw_b + slot * C::RAW_B + p * C::RB;
+    const R* rb = sm.raw_b + slot * C::RAW_B + p * C::RB;
     float* bhi = sm.b_hi(buf);
     float* blo = sm.b_lo(buf);
 #pragma unroll
     for (int i = 0; i < GPT; ++i) {
-      const int n = q + 16 * i;
+      const int n = q + NG * i;
       if (n >= C::TN) break;
-      const float2 z = split_tf32(rb[n]);
-      const int off = op_offset(n, p);
-      bhi[off] = z.x;
-      blo[off] = z.y;
+      if constexpr (C::P::NOP == 1) {
+        put_bf16(bhi, n, p, half_of(rb[n], odd_g));
+      } else {
+        const float2 z = split_tf32(rb[n]);
+        const int off = op_offset(n, p);
+        bhi[off] = z.x;
+        blo[off] = z.y;
+      }
     }
   }
 };
 
-// si, ti into shared memory, read by every stage's transform.
+// si, ti into shared memory, read by every stage's transform (rounded to
+// bf16 for the bf16 instance's input stage).
 template <class C>
 __device__ __forceinline__ void stage_affine(const Smem<C>& sm,
                                              const float* __restrict__ si,
@@ -693,23 +1021,30 @@ __device__ __forceinline__ void stage_affine(const Smem<C>& sm,
                                              int flags, int cin) {
   if (flags & IN_AFFINE)
     for (int i = threadIdx.x; i < cin; i += 2 * THREADS) {
-      sm.st[i] = __ldg(si + i);
-      sm.st[cin + i] = __ldg(ti + i);
+      float s = __ldg(si + i), t = __ldg(ti + i);
+      if constexpr (C::P::NOP == 1) {
+        s = rbf(s);
+        t = rbf(t);
+      }
+      sm.st[i] = s;
+      sm.st[cin + i] = t;
     }
   __syncthreads();
 }
 
 // out (B, N, Ho, Wo) = conv2x2(in_stage(x), pad) with x (B, Cin, Hin, Win),
-// Ho = Hin + 2 pad - 1; w is the K-major (N, 4 Cin) GEMM weight (OIHW
-// flattened), k = ci*4 + tap.
-template <class C>
+// Ho = Hin + 2 pad - 1; w is the K-major (N, ldw) GEMM weight (OIHW
+// flattened, k = ci*4 + tap; bf16: K zero-padded to whole stages).  out_f,
+// when given, also takes the fp32 values (bf16: y2 before rounding).
+template <class C, class O>
 __global__ void __launch_bounds__(2 * THREADS, 1)
-conv2x2_kernel(const float* __restrict__ x, const float* __restrict__ si,
-               const float* __restrict__ ti, int flags,
-               const float* __restrict__ w, const float* __restrict__ bias,
-               const float* __restrict__ mask, float* __restrict__ out,
-               int B, int cin, int hin, int win, int n_out, int pad,
-               int epi) {
+conv2x2_kernel(const typename C::T* __restrict__ x,
+               const float* __restrict__ si, const float* __restrict__ ti,
+               int flags, const typename C::T* __restrict__ w,
+               const float* __restrict__ bias,
+               const typename C::T* __restrict__ mask, O* __restrict__ out,
+               float* __restrict__ out_f, int B, int cin, int hin, int win,
+               int n_out, int pad, int epi) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const Smem<C> sm(smem);
   stage_affine<C>(sm, si, ti, flags, cin);
@@ -718,7 +1053,7 @@ conv2x2_kernel(const float* __restrict__ x, const float* __restrict__ si,
   const long long M = (long long)B * hwo;
   const long long m0 = (long long)blockIdx.x * C::TM;
   const int n0 = blockIdx.y * C::TN;
-  const int steps = (cin + 3) / 4;
+  const int steps = (cin + C::BK / 4 - 1) / (C::BK / 4);
   const bool consumer = threadIdx.x < THREADS;
   const int row = threadIdx.x % C::TM;
 
@@ -740,12 +1075,13 @@ conv2x2_kernel(const float* __restrict__ x, const float* __restrict__ si,
       const long long o = obase + (long long)(n0 + n) * hwo;
       float v = sm.out[n * C::OA + row];
       if (epi == EPI_MASK) {
-        v = __ldg(mask + o) > 0.f ? v : 0.f;
+        v = to_f(__ldg(mask + o)) > 0.f ? v : 0.f;
       } else {
         if (bias != nullptr) v += __ldg(bias + n0 + n);
         if (epi == EPI_BIAS_RELU) v = fmaxf(v, 0.f);
       }
-      out[o] = v;
+      put(out + o, v);
+      if (out_f != nullptr) out_f[o] = v;
     }
   } else {
     setmaxnreg_dec<PRODUCER_REGS>();
@@ -763,7 +1099,8 @@ conv2x2_kernel(const float* __restrict__ x, const float* __restrict__ si,
 // in_stage(x) with the conv's pad (as in conv2x2_kernel).
 template <class C>
 __global__ void __launch_bounds__(2 * THREADS, 1)
-wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
+wgrad_kernel(const typename C::T* __restrict__ g,
+             const typename C::T* __restrict__ x,
              const float* __restrict__ si, const float* __restrict__ ti,
              int flags, float* __restrict__ part, int B, int cin, int hin,
              int win, int n_out, int pad, long long chunk_len) {
@@ -777,7 +1114,7 @@ wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int k0 = blockIdx.x * C::TM, n0 = blockIdx.y * C::TN;
   const long long m_begin = (long long)blockIdx.z * chunk_len;
   const long long m_end = m_begin + chunk_len < M ? m_begin + chunk_len : M;
-  const int steps = (int)((m_end - m_begin + BK - 1) / BK);
+  const int steps = (int)((m_end - m_begin + C::BK - 1) / C::BK);
 
   if (threadIdx.x < THREADS) {
     setmaxnreg_inc<CONSUMER_REGS>();
@@ -793,8 +1130,8 @@ wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
     setmaxnreg_dec<PRODUCER_REGS>();
     const int pt = threadIdx.x - THREADS;
     WgradLoader<C> ld{sm, g, x, flags, cin, hin, win, ho, wo, n_out, n0, k0,
-                      pad, pt, pt % 16, pt / 16, m_begin + pt % 16, m_end,
-                      0, 0, 0};
+                      pad, pt, pt % C::BK, pt / C::BK, m_begin + pt % C::BK,
+                      m_end, 0, 0, 0};
     if (ld.m < M) {
       ld.b = (int)(ld.m / hwo);
       const int r = (int)(ld.m - (long long)ld.b * hwo);
@@ -821,17 +1158,18 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // One block per (channel c, image b) plane of hw pixels; writes the
-// per-plane partial sums part[0][b][c] (and part[1][b][c]).
-//   PLANE_STATS:  sum t, sum t^2                       (t = y2)
+// per-plane partial sums part[0][b][c] (and part[1][b][c]).  Sums are fp32
+// whatever the element types TI (t, u) and TO (out).
+//   PLANE_STATS:  sum t, sum t^2                       (t = y2, fp32)
 //   PLANE_G2:     g = t + dps + 2 u dpss -> out; sum g (t = dy2, u = y2)
-//   PLANE_SUM:    sum t                                (t = dy1)
-//   PLANE_IN_BWD: out holds dz; dz *= [pre > 0]; sums dz x and dz; out = dz si
-//                 (t = x)
-template <int MODE>
+//   PLANE_SUM:    sum t; out (if given) = t            (t = dy1, fp32)
+//   PLANE_IN_BWD: dz = in [pre > 0]; sums dz x and dz; out = dz si
+//                 (t = x; in and out may be one buffer)
+template <int MODE, class TI, class TO>
 __global__ void __launch_bounds__(THREADS)
-plane_kernel(const float* __restrict__ t, const float* __restrict__ u,
+plane_kernel(const TI* __restrict__ t, const TI* __restrict__ u,
              const float* __restrict__ pa, const float* __restrict__ pb,
-             int flags, float* __restrict__ out, float* __restrict__ part,
+             int flags, const float* in, TO* out, float* __restrict__ part,
              int B, int C, int hw) {
   __shared__ float red[THREADS / 32];
   const int c = blockIdx.x, b = blockIdx.y;
@@ -848,23 +1186,24 @@ plane_kernel(const float* __restrict__ t, const float* __restrict__ u,
   }
   for (int i = threadIdx.x; i < hw; i += THREADS) {
     const long long o = base + i;
-    const float v = __ldg(t + o);
+    const float v = to_f(__ldg(t + o));
     if (MODE == PLANE_STATS) {
       s1 += v;
       s2 = fmaf(v, v, s2);
     } else if (MODE == PLANE_G2) {
-      const float g = v + a + d * __ldg(u + o);
-      out[o] = g;
+      const float g = v + a + d * to_f(__ldg(u + o));
+      put(out + o, g);
       s1 += g;
     } else if (MODE == PLANE_SUM) {
       s1 += v;
+      if (out != nullptr) put(out + o, v);
     } else {
-      float dz = out[o];
+      float dz = in[o];
       if ((flags & IN_RELU) && !(in_stage(v, a, d, flags & IN_AFFINE) > 0.f))
         dz = 0.f;
       s1 = fmaf(dz, v, s1);
       s2 += dz;
-      out[o] = (flags & IN_AFFINE) ? dz * a : dz;
+      put(out + o, (flags & IN_AFFINE) ? dz * a : dz);
     }
   }
   const float r1 = block_sum(s1, red);
@@ -903,26 +1242,28 @@ struct TileShape {
   int tm, tn;
 };
 
+template <class P>
 TileShape tile_shape(int n_out) {
+  using Tl = Tiles<P>;
   switch (pick_tile(n_out)) {
-    case TILE8: return {Cfg8::TM, Cfg8::TN};
-    case TILE32: return {Cfg32::TM, Cfg32::TN};
-    case TILE72: return {Cfg72::TM, Cfg72::TN};
-    case TILE112: return {Cfg112::TM, Cfg112::TN};
-    default: return {Cfg144::TM, Cfg144::TN};
+    case TILE8: return {Tl::T8::TM, Tl::T8::TN};
+    case TILE32: return {Tl::T32::TM, Tl::T32::TN};
+    case TILE72: return {Tl::T72::TM, Tl::T72::TN};
+    case TILE112: return {Tl::T112::TM, Tl::T112::TN};
+    default: return {Tl::T144::TM, Tl::T144::TN};
   }
 }
 
-template <class C>
-cudaError_t launch_conv(const float* x, const float* si, const float* ti,
-                        int flags, const float* w, const float* bias,
-                        const float* mask, float* out, int B, int cin,
-                        int hin, int win, int n_out, int pad, int epi,
-                        cudaStream_t st) {
+template <class C, class O>
+cudaError_t launch_conv(const typename C::T* x, const float* si,
+                        const float* ti, int flags, const typename C::T* w,
+                        const float* bias, const typename C::T* mask, O* out,
+                        float* out_f, int B, int cin, int hin, int win,
+                        int n_out, int pad, int epi, cudaStream_t st) {
   // + si, ti; past ~7k channels the card refuses it (no int overflow)
   const int smem = C::SMEM + 8 * (cin < (1 << 20) ? cin : 1 << 20);
   const cudaError_t e = cudaFuncSetAttribute(
-      conv2x2_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv2x2_kernel<C, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) {
     cudaGetLastError();          // returned here: not left for a later check
@@ -930,56 +1271,63 @@ cudaError_t launch_conv(const float* x, const float* si, const float* ti,
   }
   const long long M = (long long)B * (hin + 2 * pad - 1) * (win + 2 * pad - 1);
   const dim3 grid(ceil_div(M, C::TM), ceil_div(n_out, C::TN));
-  conv2x2_kernel<C><<<grid, 2 * THREADS, smem, st>>>(
-      x, si, ti, flags, w, bias, mask, out, B, cin, hin, win, n_out, pad,
-      epi);
+  conv2x2_kernel<C, O><<<grid, 2 * THREADS, smem, st>>>(
+      x, si, ti, flags, w, bias, mask, out, out_f, B, cin, hin, win, n_out,
+      pad, epi);
   return cudaGetLastError();
 }
 
-cudaError_t conv2x2(const float* x, const float* si, const float* ti,
-                    int flags, const float* w, const float* bias,
-                    const float* mask, float* out, int B, int cin, int hin,
-                    int win, int n_out, int pad, int epi, cudaStream_t st) {
+template <class P, class O>
+cudaError_t conv2x2(const typename P::T* x, const float* si, const float* ti,
+                    int flags, const typename P::T* w, const float* bias,
+                    const typename P::T* mask, O* out, float* out_f, int B,
+                    int cin, int hin, int win, int n_out, int pad, int epi,
+                    cudaStream_t st) {
+  using Tl = Tiles<P>;
 #define MMLF_CONV(CFG)                                                      \
-  return launch_conv<CFG>(x, si, ti, flags, w, bias, mask, out, B, cin, hin, \
-                          win, n_out, pad, epi, st)
+  return launch_conv<typename Tl::CFG, O>(x, si, ti, flags, w, bias, mask, \
+                                          out, out_f, B, cin, hin, win,     \
+                                          n_out, pad, epi, st)
   switch (pick_tile(n_out)) {
-    case TILE8: MMLF_CONV(Cfg8);
-    case TILE32: MMLF_CONV(Cfg32);
-    case TILE72: MMLF_CONV(Cfg72);
-    case TILE112: MMLF_CONV(Cfg112);
-    default: MMLF_CONV(Cfg144);
+    case TILE8: MMLF_CONV(T8);
+    case TILE32: MMLF_CONV(T32);
+    case TILE72: MMLF_CONV(T72);
+    case TILE112: MMLF_CONV(T112);
+    default: MMLF_CONV(T144);
   }
 #undef MMLF_CONV
 }
 
 // Pixel chunking of one weight gradient: enough blocks to fill the card,
-// chunks a multiple of BK pixels long and at most WGRAD_MAX_CHUNK.
+// chunks a multiple of one stage's pixels long and at most
+// WGRAD_MAX_CHUNK.
 struct Chunks {
   long long len;
   int count;
 };
 
+template <class P>
 Chunks wgrad_chunks(int B, int cin, int hin, int win, int n_out, int pad) {
+  constexpr int bk = P::BK;
   const long long M = (long long)B * (hin + 2 * pad - 1) * (win + 2 * pad - 1);
-  const TileShape t = tile_shape(n_out);
+  const TileShape t = tile_shape<P>(n_out);
   const int tiles = ceil_div(4 * cin, t.tm) * ceil_div(n_out, t.tn);
   long long want = ceil_div(WGRAD_TARGET_BLOCKS, tiles);
   if (want < ceil_div(M, WGRAD_MAX_CHUNK)) want = ceil_div(M, WGRAD_MAX_CHUNK);
-  const long long most = ceil_div(M, 16 * BK);
+  const long long most = ceil_div(M, 16 * bk);
   if (want > most) want = most;
   if (want < 1) want = 1;
   Chunks c;
-  c.len = (long long)ceil_div(ceil_div(M, want), BK) * BK;
+  c.len = (long long)ceil_div(ceil_div(M, want), bk) * bk;
   c.count = ceil_div(M, c.len);
   return c;
 }
 
 template <class C>
-cudaError_t launch_wgrad(const float* g, const float* x, const float* si,
-                         const float* ti, int flags, float* part, int B,
-                         int cin, int hin, int win, int n_out, int pad,
-                         Chunks ch, cudaStream_t st) {
+cudaError_t launch_wgrad(const typename C::T* g, const typename C::T* x,
+                         const float* si, const float* ti, int flags,
+                         float* part, int B, int cin, int hin, int win,
+                         int n_out, int pad, Chunks ch, cudaStream_t st) {
   // + si, ti; past ~7k channels the card refuses it (no int overflow)
   const int smem = C::SMEM + 8 * (cin < (1 << 20) ? cin : 1 << 20);
   const cudaError_t e = cudaFuncSetAttribute(
@@ -996,21 +1344,23 @@ cudaError_t launch_wgrad(const float* g, const float* x, const float* si,
   return cudaGetLastError();
 }
 
-cudaError_t wgrad(const float* g, const float* x, const float* si,
-                  const float* ti, int flags, float* part, float* dw, int B,
-                  int cin, int hin, int win, int n_out, int pad,
-                  cudaStream_t st) {
-  const Chunks ch = wgrad_chunks(B, cin, hin, win, n_out, pad);
+template <class P>
+cudaError_t wgrad(const typename P::T* g, const typename P::T* x,
+                  const float* si, const float* ti, int flags, float* part,
+                  float* dw, int B, int cin, int hin, int win, int n_out,
+                  int pad, cudaStream_t st) {
+  using Tl = Tiles<P>;
+  const Chunks ch = wgrad_chunks<P>(B, cin, hin, win, n_out, pad);
 #define MMLF_WGRAD(CFG)                                                    \
-  launch_wgrad<CFG>(g, x, si, ti, flags, part, B, cin, hin, win, n_out, pad, \
-                    ch, st)
+  launch_wgrad<typename Tl::CFG>(g, x, si, ti, flags, part, B, cin, hin,  \
+                                 win, n_out, pad, ch, st)
   cudaError_t err;
   switch (pick_tile(n_out)) {
-    case TILE8: err = MMLF_WGRAD(Cfg8); break;
-    case TILE32: err = MMLF_WGRAD(Cfg32); break;
-    case TILE72: err = MMLF_WGRAD(Cfg72); break;
-    case TILE112: err = MMLF_WGRAD(Cfg112); break;
-    default: err = MMLF_WGRAD(Cfg144);
+    case TILE8: err = MMLF_WGRAD(T8); break;
+    case TILE32: err = MMLF_WGRAD(T32); break;
+    case TILE72: err = MMLF_WGRAD(T72); break;
+    case TILE112: err = MMLF_WGRAD(T112); break;
+    default: err = MMLF_WGRAD(T144);
   }
 #undef MMLF_WGRAD
   if (err != cudaSuccess) return err;
@@ -1032,12 +1382,40 @@ bool bad_shape(int B, int cin, int H, int W, int cout) {
              (1LL << 31);
 }
 
+template <class P>
 long long wgrad_scratch(int B, int cin, int H, int W, int cout) {
-  const Chunks c2 = wgrad_chunks(B, cout, H + 1, W + 1, cout, 0);
-  const Chunks c1 = wgrad_chunks(B, cin, H, W, cout, 1);
+  const Chunks c2 = wgrad_chunks<P>(B, cout, H + 1, W + 1, cout, 0);
+  const Chunks c1 = wgrad_chunks<P>(B, cin, H, W, cout, 1);
   const long long s2 = (long long)c2.count * cout * 4 * cout;
   const long long s1 = (long long)c1.count * cout * 4 * cin;
   return s1 > s2 ? s1 : s2;
+}
+
+// The forward of either instance: y1 (scratch), y2 and, for bf16, its fp32
+// values y2f (scratch) from which ps and pss are summed.
+template <class P>
+cudaError_t block_fwd(const typename P::T* x, const float* si,
+                      const float* ti, const typename P::T* w1,
+                      const float* b1, const typename P::T* w2,
+                      const float* b2, typename P::T* y1, typename P::T* y2,
+                      float* y2f, float* part, float* ps, float* pss, int B,
+                      int cin, int H, int W, int cout, int flags,
+                      cudaStream_t st) {
+  cudaError_t e = conv2x2<P>(x, si, ti, flags, w1, b1, nullptr, y1, nullptr,
+                             B, cin, H, W, cout, 1, EPI_BIAS_RELU, st);
+  if (e != cudaSuccess) return e;
+  e = conv2x2<P>(y1, nullptr, nullptr, 0, w2, b2, nullptr, y2, y2f, B, cout,
+                 H + 1, W + 1, cout, 0, EPI_BIAS, st);
+  if (e != cudaSuccess) return e;
+  const float* stats = y2f != nullptr ? y2f : (const float*)y2;
+  plane_kernel<PLANE_STATS, float, float><<<dim3(cout, B), THREADS, 0, st>>>(
+      stats, nullptr, nullptr, nullptr, 0, nullptr, (float*)nullptr, part, B,
+      cout, H * W);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = sum_images(part, B, cout, ps, st);
+  if (e != cudaSuccess) return e;
+  return sum_images(part + (long long)B * cout, B, cout, pss, st);
 }
 
 }  // namespace
@@ -1053,7 +1431,13 @@ extern "C" {
 // Floats of the wgrad scratch that mmlf_conv_block_bwd needs.
 long long mmlf_conv_block_wgrad_scratch(int B, int cin, int H, int W,
                                         int cout) {
-  return wgrad_scratch(B, cin, H, W, cout);
+  return wgrad_scratch<Tf32x3>(B, cin, H, W, cout);
+}
+
+// Floats of the wgrad scratch that mmlf_conv_block_bwd_bf16 needs.
+long long mmlf_conv_block_wgrad_scratch_bf16(int B, int cin, int H, int W,
+                                             int cout) {
+  return wgrad_scratch<Bf16>(B, cin, H, W, cout);
 }
 
 // Forward.  x (B, Cin, H, W); si, ti (Cin) (read only with affine_in); w1
@@ -1068,17 +1452,32 @@ int mmlf_conv_block_fwd(const float* x, const float* si, const float* ti,
                         void* stream) {
   if (bad_shape(B, cin, H, W, cout)) return (int)cudaErrorInvalidValue;
   MMLF_TRY(cudaSetDevice(device));
-  const cudaStream_t st = (cudaStream_t)stream;
   const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
-  MMLF_TRY(conv2x2(x, si, ti, flags, w1, b1, nullptr, y1, B, cin, H, W,
-                   cout, 1, EPI_BIAS_RELU, st));
-  MMLF_TRY(conv2x2(y1, nullptr, nullptr, 0, w2, b2, nullptr, y2, B, cout,
-                   H + 1, W + 1, cout, 0, EPI_BIAS, st));
-  plane_kernel<PLANE_STATS><<<dim3(cout, B), THREADS, 0, st>>>(
-      y2, nullptr, nullptr, nullptr, 0, nullptr, part, B, cout, H * W);
-  MMLF_TRY(cudaGetLastError());
-  MMLF_TRY(sum_images(part, B, cout, ps, st));
-  MMLF_TRY(sum_images(part + (long long)B * cout, B, cout, pss, st));
+  MMLF_TRY(block_fwd<Tf32x3>(x, si, ti, w1, b1, w2, b2, y1, y2, nullptr,
+                             part, ps, pss, B, cin, H, W, cout, flags,
+                             (cudaStream_t)stream));
+  return (int)cudaSuccess;
+}
+
+// Forward, bfloat16 canvases (bf16 as 16-bit words).  x (B, Cin, H, W)
+// bf16; si, ti, b1, b2 fp32; w1 (Cout, 4 Cin8) and w2 (Cout, 4 Cout8) bf16
+// GEMM weights with K zero-padded to whole stages (C8 = C rounded up to 8).
+// Writes y1 (bf16 scratch), y2 (bf16), y2f (B, Cout, H, W, fp32 scratch),
+// part, ps and pss as the fp32 forward.
+int mmlf_conv_block_fwd_bf16(const uint16_t* x, const float* si,
+                             const float* ti, const uint16_t* w1,
+                             const float* b1, const uint16_t* w2,
+                             const float* b2, uint16_t* y1, uint16_t* y2,
+                             float* y2f, float* part, float* ps, float* pss,
+                             int B, int cin, int H, int W, int cout,
+                             int relu_in, int affine_in, int device,
+                             void* stream) {
+  if (bad_shape(B, cin, H, W, cout)) return (int)cudaErrorInvalidValue;
+  MMLF_TRY(cudaSetDevice(device));
+  const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
+  MMLF_TRY(block_fwd<Bf16>(x, si, ti, w1, b1, w2, b2, y1, y2, y2f, part, ps,
+                           pss, B, cin, H, W, cout, flags,
+                           (cudaStream_t)stream));
   return (int)cudaSuccess;
 }
 
@@ -1104,28 +1503,31 @@ int mmlf_conv_block_bwd(const float* x, const float* si, const float* ti,
   const cudaStream_t st = (cudaStream_t)stream;
   const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
   const int H1 = H + 1, W1 = W + 1;
+  using P = Tf32x3;
 
   // y1 again, from the x residual
-  MMLF_TRY(conv2x2(x, si, ti, flags, w1, b1, nullptr, y1, B, cin, H, W,
-                   cout, 1, EPI_BIAS_RELU, st));
+  MMLF_TRY(conv2x2<P>(x, si, ti, flags, w1, b1, nullptr, y1, nullptr, B, cin,
+                      H, W, cout, 1, EPI_BIAS_RELU, st));
   // g2 and db2
-  plane_kernel<PLANE_G2><<<dim3(cout, B), THREADS, 0, st>>>(
-      dy2, y2, dps, dpss, 0, g2, bpart, B, cout, H * W);
+  plane_kernel<PLANE_G2, float, float><<<dim3(cout, B), THREADS, 0, st>>>(
+      dy2, y2, dps, dpss, 0, nullptr, g2, bpart, B, cout, H * W);
   MMLF_TRY(cudaGetLastError());
   MMLF_TRY(sum_images(bpart, B, cout, db2, st));
   // dy1 = [y1 > 0] dgrad2(g2) and db1
-  MMLF_TRY(conv2x2(g2, nullptr, nullptr, 0, w2dg, nullptr, y1, dy1, B, cout,
-                   H, W, cout, 1, EPI_MASK, st));
-  plane_kernel<PLANE_SUM><<<dim3(cout, B), THREADS, 0, st>>>(
-      dy1, nullptr, nullptr, nullptr, 0, nullptr, bpart, B, cout, H1 * W1);
+  MMLF_TRY(conv2x2<P>(g2, nullptr, nullptr, 0, w2dg, nullptr, y1, dy1,
+                      nullptr, B, cout, H, W, cout, 1, EPI_MASK, st));
+  plane_kernel<PLANE_SUM, float, float><<<dim3(cout, B), THREADS, 0, st>>>(
+      dy1, nullptr, nullptr, nullptr, 0, nullptr, (float*)nullptr, bpart, B,
+      cout, H1 * W1);
   MMLF_TRY(cudaGetLastError());
   MMLF_TRY(sum_images(bpart, B, cout, db1, st));
   // dz = dgrad1(dy1) into dx, then the input stage's backward in place
-  MMLF_TRY(conv2x2(dy1, nullptr, nullptr, 0, w1dg, nullptr, nullptr, dx, B,
-                   cout, H1, W1, cin, 0, EPI_BIAS, st));
+  MMLF_TRY(conv2x2<P>(dy1, nullptr, nullptr, 0, w1dg, nullptr, nullptr, dx,
+                      nullptr, B, cout, H1, W1, cin, 0, EPI_BIAS, st));
   if (flags) {
-    plane_kernel<PLANE_IN_BWD><<<dim3(cin, B), THREADS, 0, st>>>(
-        x, nullptr, si, ti, flags, dx, bpart, B, cin, H * W);
+    plane_kernel<PLANE_IN_BWD, float, float>
+        <<<dim3(cin, B), THREADS, 0, st>>>(x, nullptr, si, ti, flags, dx, dx,
+                                           bpart, B, cin, H * W);
     MMLF_TRY(cudaGetLastError());
   }
   if (affine_in) {
@@ -1136,10 +1538,77 @@ int mmlf_conv_block_bwd(const float* x, const float* si, const float* ti,
     MMLF_TRY(cudaMemsetAsync(dti, 0, sizeof(float) * cin, st));
   }
   // weight gradients: dW2 = sum g2 (x) taps(y1), dW1 = sum dy1 (x) taps(z)
-  MMLF_TRY(wgrad(g2, y1, nullptr, nullptr, 0, wpart, dw2, B, cout, H1, W1,
-                 cout, 0, st));
-  MMLF_TRY(wgrad(dy1, x, si, ti, flags, wpart, dw1, B, cin, H, W, cout, 1,
-                 st));
+  MMLF_TRY(wgrad<P>(g2, y1, nullptr, nullptr, 0, wpart, dw2, B, cout, H1, W1,
+                    cout, 0, st));
+  MMLF_TRY(wgrad<P>(dy1, x, si, ti, flags, wpart, dw1, B, cin, H, W, cout, 1,
+                    st));
+  return (int)cudaSuccess;
+}
+
+// Backward, bfloat16 canvases.  x, y2, dy2 bf16; w1 (Cout, 4 Cin8), w1dg
+// (Cin, 4 Cout8), w2dg (Cout, 4 Cout8) bf16 GEMM weights, K zero-padded as
+// in the forward; si, ti, b1, dps, dpss fp32.  Scratch: y1 (bf16, B, Cout,
+// H+1, W+1), g2 (bf16, B, Cout, H, W), dy1 (fp32) and dy1h (bf16) (B, Cout,
+// H+1, W+1), dz (fp32, B, Cin, H, W), wpart
+// (mmlf_conv_block_wgrad_scratch_bf16 floats), bpart (2 B max(Cin, Cout)).
+// Writes dx (bf16, B, Cin, H, W) and the fp32 dw1, db1, dw2, db2, dsi, dti
+// as the fp32 backward.
+int mmlf_conv_block_bwd_bf16(const uint16_t* x, const float* si,
+                             const float* ti, const uint16_t* w1,
+                             const float* b1, const uint16_t* w1dg,
+                             const uint16_t* w2dg, const uint16_t* y2,
+                             const uint16_t* dy2, const float* dps,
+                             const float* dpss, uint16_t* y1, uint16_t* g2,
+                             float* dy1, uint16_t* dy1h, float* dz,
+                             float* wpart, float* bpart, uint16_t* dx,
+                             float* dw1, float* db1, float* dw2, float* db2,
+                             float* dsi, float* dti, int B, int cin, int H,
+                             int W, int cout, int relu_in, int affine_in,
+                             int device, void* stream) {
+  if (bad_shape(B, cin, H, W, cout)) return (int)cudaErrorInvalidValue;
+  MMLF_TRY(cudaSetDevice(device));
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
+  const int H1 = H + 1, W1 = W + 1;
+  using P = Bf16;
+
+  // y1 again, from the x residual
+  MMLF_TRY(conv2x2<P>(x, si, ti, flags, w1, b1, nullptr, y1, nullptr, B, cin,
+                      H, W, cout, 1, EPI_BIAS_RELU, st));
+  // g2 (fp32, summed into db2; stored as bf16 for its products)
+  plane_kernel<PLANE_G2, uint16_t, uint16_t>
+      <<<dim3(cout, B), THREADS, 0, st>>>(dy2, y2, dps, dpss, 0, nullptr, g2,
+                                          bpart, B, cout, H * W);
+  MMLF_TRY(cudaGetLastError());
+  MMLF_TRY(sum_images(bpart, B, cout, db2, st));
+  // dy1 = [y1 > 0] dgrad2(g2) in fp32, db1 from it, dy1h its bf16 copy
+  MMLF_TRY(conv2x2<P>(g2, nullptr, nullptr, 0, w2dg, nullptr, y1, dy1,
+                      nullptr, B, cout, H, W, cout, 1, EPI_MASK, st));
+  plane_kernel<PLANE_SUM, float, uint16_t>
+      <<<dim3(cout, B), THREADS, 0, st>>>(dy1, nullptr, nullptr, nullptr, 0,
+                                          nullptr, dy1h, bpart, B, cout,
+                                          H1 * W1);
+  MMLF_TRY(cudaGetLastError());
+  MMLF_TRY(sum_images(bpart, B, cout, db1, st));
+  // dz = dgrad1(dy1) in fp32, then the input stage's backward into dx
+  MMLF_TRY(conv2x2<P>(dy1h, nullptr, nullptr, 0, w1dg, nullptr, nullptr, dz,
+                      nullptr, B, cout, H1, W1, cin, 0, EPI_BIAS, st));
+  plane_kernel<PLANE_IN_BWD, uint16_t, uint16_t>
+      <<<dim3(cin, B), THREADS, 0, st>>>(x, nullptr, si, ti, flags, dz, dx,
+                                         bpart, B, cin, H * W);
+  MMLF_TRY(cudaGetLastError());
+  if (affine_in) {
+    MMLF_TRY(sum_images(bpart, B, cin, dsi, st));
+    MMLF_TRY(sum_images(bpart + (long long)B * cin, B, cin, dti, st));
+  } else {
+    MMLF_TRY(cudaMemsetAsync(dsi, 0, sizeof(float) * cin, st));
+    MMLF_TRY(cudaMemsetAsync(dti, 0, sizeof(float) * cin, st));
+  }
+  // weight gradients: dW2 = sum g2 (x) taps(y1), dW1 = sum dy1 (x) taps(z)
+  MMLF_TRY(wgrad<P>(g2, y1, nullptr, nullptr, 0, wpart, dw2, B, cout, H1, W1,
+                    cout, 0, st));
+  MMLF_TRY(wgrad<P>(dy1h, x, si, ti, flags, wpart, dw1, B, cin, H, W, cout, 1,
+                    st));
   return (int)cudaSuccess;
 }
 

@@ -20,6 +20,12 @@ index gather:
     channel order view*3 + colour.
 
 The mask is deliberately not rotated (reference quirk).
+
+A bfloat16 window (``--cache_bf16``) is shifted where the JAX package's
+matmuls round: each pass's lerp weights ``1-α`` and ``α`` are bf16 and its
+result is rounded to bf16 (two exact products summed in fp32, as the bf16
+matmul with two non-zeros a row); the rotation is exact, and the colour
+mix, brightness and contrast run in float32.
 """
 
 from __future__ import annotations
@@ -118,6 +124,9 @@ def _shift_crop(x: torch.Tensor, amt: torch.Tensor, start: torch.Tensor,
         return torch.gather(x, dim, idx.expand(out_shape))
 
     a = alpha[:, None, None, :, None]
+    if x.dtype == torch.bfloat16:
+        w0, w1 = ((1.0 - a).to(x.dtype).float(), a.to(x.dtype).float())
+        return (w0 * take(s0).float() + w1 * take(s1).float()).to(x.dtype)
     return (1.0 - a) * take(s0) + a * take(s1)
 
 
@@ -151,7 +160,7 @@ def augment_packed(img: torch.Tensor, aug: dict, ps: int, views: int):
                      qin[:, None, None, :, None].expand(b, ps, ps, q, 3))
 
     # RedistColor, Brightness, then Contrast on the h-stack mean
-    x = torch.einsum('byxqc,bdc->byxqd', x, aug['color'])
+    x = torch.einsum('byxqc,bdc->byxqd', x.float(), aug['color'])
     x = x * aug['brightness'][:, None, None, None, None]
     contrast = aug['contrast'][:, None, None, None, None]
     pivot = torch.mean(x[:, :, :, :views], dim=(1, 2, 3, 4),

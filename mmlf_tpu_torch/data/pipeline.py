@@ -184,10 +184,12 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def build_device_cache(scenes, max_f: int = 4,
-                       device='cuda') -> PackedCache:
+def build_device_cache(scenes, max_f: int = 4, device='cuda',
+                       img_dtype=torch.float32) -> PackedCache:
     """Pack ``TrainPipeline`` scene dicts into the pyramid layout (host
-    numpy, once) and move the levels to ``device``."""
+    numpy, once) and move the levels to ``device``.  The image levels take
+    ``img_dtype`` (bfloat16 under ``--cache_bf16``, rounded to nearest as
+    the JAX package's cast rounds); aux and mpi stay float32."""
     dev = torch.device(device)
     n = scenes[0]['h'].shape[0]
     ci = _round_up(4 * n * 3, 128)
@@ -219,7 +221,8 @@ def build_device_cache(scenes, max_f: int = 4,
             mp[..., :k5] = m.reshape(hf, wf, k5)
             mpis.append(mp.reshape(hf, wf * MPI_CH))
 
-        img_levels.append(torch.from_numpy(np.stack(imgs)).to(dev))
+        img_levels.append(torch.from_numpy(np.stack(imgs)).to(
+            dev, img_dtype))
         aux_levels.append(torch.from_numpy(np.stack(auxs)).to(dev))
         mpi_levels.append(torch.from_numpy(np.stack(mpis)).to(dev))
 
@@ -350,7 +353,9 @@ class DevicePipeline(TrainPipeline):
             raise ValueError(f'the device cache needs one scene shape, got '
                              f'{sorted(shapes)}')
         self.scene_shape = shapes.pop()
-        self.cache = build_device_cache(self.scenes, self.max_f, device)
+        img_dtype = torch.bfloat16 if cfg.cache_bf16 else torch.float32
+        self.cache = build_device_cache(self.scenes, self.max_f, device,
+                                        img_dtype)
 
     def _stratified_rot(self, batch_size: int) -> np.ndarray:
         """Rotations drawn as the JAX package draws them: within each

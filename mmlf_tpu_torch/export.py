@@ -4,10 +4,11 @@
 packages what a server needs to answer requests for the checkpoint in
 ``RUN`` (``checkpoint.msgpack`` of the JAX package or a reference-format
 ``checkpoint.pt``): the BatchNorm-folded weights and a meta record (the
-stored config, the ensemble grid and calibration, the ingest mode, the
-served shape and batch).  The flags are those of ``mmlf_tpu.export`` but
-``--platforms`` and ``--jax_cache``: nothing is lowered or compiled, and
-the export runs on the host.
+stored config, the conv trunk's dtype (``bfloat16`` for a ``--bf16``
+checkpoint, which the served model runs in), the ensemble grid and
+calibration, the ingest mode, the served shape and batch).  The flags are
+those of ``mmlf_tpu.export`` but ``--platforms`` and ``--jax_cache``:
+nothing is lowered or compiled, and the export runs on the host.
 
 The file: the magic ``MMLFPT01``, three little-endian u64 lengths (meta,
 weights, program), the JSON meta record, then the weights as
@@ -89,7 +90,9 @@ def build_inference(output_dir: str, val_ensamble: bool = False,
                              'ensemble export (--val_ensamble)')
         member_offsets = [float(x) for x in calibration['member_offsets']]
 
-    meta = {'config': cfg.to_dict(), 'val_ensamble': val_ensamble,
+    meta = {'config': cfg.to_dict(),
+            'dtype': 'bfloat16' if cfg.bf16 else 'float32',
+            'val_ensamble': val_ensamble,
             'val_disp_min': val_disp_min, 'val_disp_max': val_disp_max,
             'val_disp_step': val_disp_step, 'members': members,
             'views': cfg.model_views, 'u8': u8,

@@ -37,14 +37,28 @@ stats, with ``model_batchnorm_momentum`` as torch's momentum.
 ``ksize=2`` net in train mode through kernel K3 (``models/pallas_trunk.py``),
 with the same weights, BN buffers and heads; eval keeps the plain path, as
 the JAX package does.
+
+``bf16`` (``--bf16``) runs the conv trunk in bfloat16 where the JAX package
+rounds: the stacks are cast at entry, each conv takes bf16 input and bf16
+weights and adds its bias in bf16 after the conv (two roundings, not one
+inside the convolution), BatchNorm normalizes in bf16 (``ops/batchnorm``),
+and the trunk's output is cast to float32 before the heads.  Parameters,
+heads, the posterior and the optimizer stay float32.  ``remat``
+(``--remat``) recomputes each train-mode conv block in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations; eval and
+the fused trunk ignore it.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.batchnorm import BatchNorm2d
+from ..ops.batchnorm import BatchNorm2d, recomputing
 from ..ops.codecs import bin_centers, class_to_reg
 from .pallas_trunk import trunk_forward
 
@@ -100,10 +114,13 @@ class FeedForward(nn.Module):
                  discrete: bool = False, no_batchnorm: bool = False,
                  batchnorm_momentum: float = 0.1,
                  disp_min: float = -3.5, disp_max: float = 3.5,
-                 pallas_trunk: bool = False):
+                 pallas_trunk: bool = False, bf16: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.ksize = ksize
         self.pallas_trunk = pallas_trunk
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
+        self.remat = remat
         self.cross = cross
         self.uncert = uncert
         self.discrete = discrete
@@ -137,8 +154,7 @@ class FeedForward(nn.Module):
     def from_config(cls, cfg) -> 'FeedForward':
         for flag, item in (('model_unet', 'models/unet.py'),
                            ('model_inn', 'the INN'),
-                           ('model_invertible', 'the INN'),
-                           ('bf16', 'item 11, training options')):
+                           ('model_invertible', 'the INN')):
             if getattr(cfg, flag, False):
                 raise NotImplementedError(
                     f'{flag} is not ported to mmlf_tpu_torch yet '
@@ -150,7 +166,8 @@ class FeedForward(nn.Module):
                    no_batchnorm=cfg.model_no_batchnorm,
                    batchnorm_momentum=cfg.model_batchnorm_momentum,
                    disp_min=cfg.val_disp_min, disp_max=cfg.val_disp_max,
-                   pallas_trunk=cfg.pallas_trunk)
+                   pallas_trunk=cfg.pallas_trunk, bf16=cfg.bf16,
+                   remat=cfg.remat)
 
     @property
     def steps(self) -> int:
@@ -158,7 +175,9 @@ class FeedForward(nn.Module):
 
     def forward(self, h_views, v_views, i_views=None, d_views=None,
                 folded: bool = False):
-        fold = (lambda s: s) if folded else _fold
+        def fold(s):
+            return (s if folded else _fold(s)).to(self.dtype)
+
         if self.pallas_trunk and self.ksize == 2 and self.training:
             stacks = [fold(s) for s in (h_views, v_views)] + (
                 [] if self.cross else [fold(i_views), fold(d_views)])
@@ -193,18 +212,49 @@ class FeedForward(nn.Module):
                 'one_hot': one_hot, 'posterior': posterior}
 
     def _plain_trunk(self, fold, h_views, v_views, i_views, d_views):
+        net = self._run_net
         # 't': the reference's transpose of the horizontal stream
         x_h = fold(h_views).transpose(2, 3)
-        f_h = self.in_net_hv(x_h).transpose(2, 3)
-        f_v = self.in_net_hv(fold(v_views))
+        f_h = net(self.in_net_hv, x_h).transpose(2, 3)
+        f_v = net(self.in_net_hv, fold(v_views))
         feats = [f_h, f_v]
         if not self.cross:
             # 'tf': transpose, then mirror the original-H axis (now last)
             x_i = fold(i_views).transpose(2, 3).flip(-1)
-            f_i = self.in_net_id(x_i).flip(-1).transpose(2, 3)
-            f_d = self.in_net_id(fold(d_views))
+            f_i = net(self.in_net_id, x_i).flip(-1).transpose(2, 3)
+            f_d = net(self.in_net_id, fold(d_views))
             feats += [f_i, f_d]
-        return self.out_net(torch.cat(feats, dim=1))
+        return net(self.out_net, torch.cat(feats, dim=1))
+
+    def _run_net(self, blocks: nn.Sequential, x):
+        """The conv blocks of one net on ``x`` (in the trunk dtype), each
+        checkpointed under ``remat`` in train mode."""
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for blk in blocks:
+            fn = blk if self.dtype == torch.float32 else \
+                (lambda a, blk=blk: _block_bf16(blk, a))
+            x = checkpoint(fn, x, use_reentrant=False,
+                           context_fn=_recompute_context) if remat else fn(x)
+        return x
+
+
+def _block_bf16(blk: nn.Sequential, x):
+    """One conv block on a bf16 activation, rounding where the JAX
+    package's ``OrientedConv`` does: the conv of bf16 input and bf16
+    weights, then its bias added in bf16."""
+    for layer in blk:
+        if isinstance(layer, nn.Conv2d):
+            x = F.conv2d(x, layer.weight.to(x.dtype), None, layer.stride,
+                         layer.padding) + layer.bias.to(x.dtype)[:, None, None]
+        else:
+            x = layer(x)
+    return x
+
+
+def _recompute_context():
+    """``checkpoint``'s contexts: the first forward as it is, the
+    recomputation under ``recomputing`` (BN statistics untouched)."""
+    return contextlib.nullcontext(), recomputing()
 
 
 # flax's lecun_normal: a normal truncated at two standard deviations,

@@ -21,6 +21,12 @@ flow back through the re-indexing.
 
 Training path only: ``FeedForward`` takes it in train mode with
 ``pallas_trunk`` and ``ksize == 2``; eval keeps the plain path.
+
+Under ``--bf16`` the stacks arrive in bfloat16, so the canvases between
+blocks (each block's y2, the residuals K3 saves) are bf16 and K3 runs its
+bf16 instance; the BN affines and the sums stay float32.  ``--remat`` is
+accepted and ignored, as by the JAX package's ``PallasOutNet``: K3 saves
+only its input and y2 and recomputes y1 in the backward already.
 """
 
 from __future__ import annotations
@@ -43,8 +49,9 @@ def orient_kernel(w: torch.Tensor, orientation: str) -> torch.Tensor:
 
 
 def _identity_affine(c: int, like: torch.Tensor):
-    return (torch.ones(c, dtype=like.dtype, device=like.device),
-            torch.zeros(c, dtype=like.dtype, device=like.device))
+    # the input affine is float32 whatever the canvases' dtype
+    return (torch.ones(c, dtype=torch.float32, device=like.device),
+            torch.zeros(c, dtype=torch.float32, device=like.device))
 
 
 def run_blocks(blocks, x, si, ti, relu_in: bool, affine_in: bool,

@@ -22,13 +22,71 @@ The fused trunk of ``--pallas_trunk`` (``models/pallas_trunk.py``) takes
 the batch statistics from kernel K3's per-channel sums instead:
 ``affine_from_sums`` turns them into the next block's input affine and
 updates the same running buffers.
+
+bfloat16 activations (``--bf16``) take ``FusedBatchNorm``'s arithmetic
+(``mmlf_tpu/ops/batchnorm.py``): the batch statistics from the fp32
+upcast, the normalize as one per-channel affine ``x·bf16(s) + bf16(t)`` in
+bf16 (eval mode: the same affine from the running statistics), and the
+backward in fp32 with dx cast to bf16 (``_BNApplyBf16``).  The parameters
+and running statistics stay float32.
+
+Under ``--remat`` (``models/feed_forward.py``) a block's forward runs again
+in the backward; ``recomputing()`` marks that run, and the running
+statistics are updated only in the first.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+# per thread: the backward that recomputes a block may run on another thread
+# than a concurrent forward
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a checkpointed block's second forward: BatchNorm
+    leaves its running statistics as the first forward left them."""
+    prev = getattr(_STATE, 'recomputing', False)
+    _STATE.recomputing = True
+    try:
+        yield
+    finally:
+        _STATE.recomputing = prev
+
+
+class _BNApplyBf16(torch.autograd.Function):
+    """The train-mode normalize of a bf16 activation, ``x·bf16(s) +
+    bf16(t)`` with ``s = γ·rstd`` and ``t = β − mean·s``, and the canonical
+    BatchNorm backward in fp32 (``FusedBatchNorm._bn_apply``): the batch
+    mean and rstd take no gradient, their dependence on x is in dx."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, rstd):
+        s = weight * rstd
+        t = bias - mean * s
+        ctx.save_for_backward(x, weight, mean, rstd)
+        return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, rstd = ctx.saved_tensors
+        n = x.numel() / x.shape[1]
+        xf, dyf = x.float(), dy.float()
+        sum_dy = dyf.sum((0, 2, 3))
+        sum_dy_x = (dyf * xf).sum((0, 2, 3))
+        dgamma = rstd * (sum_dy_x - mean * sum_dy)
+        xhat = (xf - mean[:, None, None]) * rstd[:, None, None]
+        dx = (weight * rstd)[:, None, None] * (
+            dyf - (sum_dy / n)[:, None, None]
+            - xhat * (dgamma / n)[:, None, None])
+        return dx.to(x.dtype), dgamma, sum_dy, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -39,17 +97,38 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self._forward_bf16(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def _forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            s = self.weight * torch.rsqrt(self.running_var + self.eps)
+            t = self.bias - self.running_mean * s
+            return x * s.to(x.dtype)[:, None, None] + \
+                t.to(x.dtype)[:, None, None]
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            self._update_running(mean, var)
+        return _BNApplyBf16.apply(x, self.weight, self.bias, mean,
+                                  torch.rsqrt(var + self.eps))
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor):
+        if getattr(_STATE, 'recomputing', False):
+            return
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
 
     def affine_from_sums(self, ps: torch.Tensor, pss: torch.Tensor,
                          count: float):
@@ -66,10 +145,6 @@ class BatchNorm2d(nn.BatchNorm2d):
         """
         mean = ps / count
         var = pss / count - mean * mean
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+        self._update_running(mean.detach(), var.detach())
         scale = self.weight * torch.rsqrt(var + self.eps)
         return scale, self.bias - mean * scale

@@ -14,14 +14,25 @@ The backward recomputes y1 from ``x``; the residuals are ``x`` and ``y2``.
 Weights are OIHW, as the port's ``nn.Conv2d`` holds them; the layout is the
 port's NCHW (the TPU kernel's lane canvas does not carry over).
 
+bfloat16 activations (``--bf16``) take the TPU kernel's bf16 instance: x,
+y2 and dx are bf16, the weights are rounded to bf16, si, ti, the biases,
+the sums and the weight gradients stay float32, and the rounding points are
+the TPU kernel's (``_input_stage`` and the plain versions below spell them
+out: the input affine in bf16 arithmetic, y1 and y2 rounded after their
+fp32 sums, ps and pss from the fp32 y2, g2 and dy1 summed in fp32 and
+rounded for their products, the input stage's relu' on the fp32
+``x·si + ti``).
+
 On CUDA tensors ``fused_double_conv_fwd`` / ``fused_double_conv_bwd``
 launch the hand-written kernels of ``csrc/conv_block.cu``: every GEMM on
-Hopper's tensor cores in 3×TF32 (each fp32 operand split into two TF32
-parts, three products), which keeps fp32's accuracy; its note gives the
-bound on an H100 (operations).  On CPU tensors they take the plain
-PyTorch versions beside them.  There is no fallback: a build or launch
-error raises.  Each counts its kernel launches in ``.launches``.
-``fused_double_conv`` is the autograd Function the trunk calls.
+Hopper's tensor cores, for float32 in 3×TF32 (each fp32 operand split into
+two TF32 parts, three products), which keeps fp32's accuracy, for bfloat16
+in one bf16 product with fp32 sums; its note gives the bounds on an H100
+(operations).  On CPU tensors they take the plain PyTorch versions beside
+them.  There is no fallback: a build or launch error raises.  Each counts
+its kernel launches, float32 in ``.launches`` and bfloat16 in
+``.launches_bf16``.  ``fused_double_conv`` is the autograd Function the
+trunk calls.
 """
 
 from __future__ import annotations
@@ -34,43 +45,69 @@ from torch.nn import functional as F
 from . import build
 
 
+def _bf(t):
+    """``t`` rounded to bfloat16, back in its own dtype (the bf16
+    instance's operands: a float32 conv of such values gives a bf16 tensor
+    core's exact products, summed in another order)."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def _input_stage(x, si, ti, relu_in: bool, affine_in: bool):
-    """``(pre, z)``: the affine'd input and the input stage's output."""
+    """``(pre, z)``: the affine'd input and the input stage's output, in
+    si's dtype.  For a bf16 ``x`` the stage runs in bf16 arithmetic as the
+    TPU kernel's does (``x·bf16(si)`` rounded, ``+ bf16(ti)`` rounded);
+    ``pre`` is then the unrounded ``x·si + ti`` its backward's relu'
+    reads."""
+    bf16 = x.dtype == torch.bfloat16
+    x = x.to(si.dtype)
     pre = x * si[:, None, None] + ti[:, None, None] if affine_in else x
-    return pre, (torch.relu(pre) if relu_in else pre)
+    z = pre
+    if bf16 and affine_in:
+        z = _bf(_bf(x * _bf(si)[:, None, None]) + _bf(ti)[:, None, None])
+    return pre, (torch.relu(z) if relu_in else z)
 
 
 def plain_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
                           affine_in: bool):
-    """Plain PyTorch version of the forward: ``(y2, ps, pss)``."""
+    """Plain PyTorch version of the forward: ``(y2, ps, pss)``; y2 in x's
+    dtype, the sums in si's (from the unrounded y2).  With a bf16 ``x``
+    and float64 parameters it is a float64 evaluation of the bf16
+    instance: the same rounding points, every sum in float64."""
+    bf16 = x.dtype == torch.bfloat16
+    rnd = _bf if bf16 else (lambda t: t)
     _, z = _input_stage(x, si, ti, relu_in, affine_in)
-    y1 = torch.relu(F.conv2d(z, w1, b1, padding=1))
-    y2 = F.conv2d(y1, w2, b2)
-    return y2, y2.sum((0, 2, 3)), (y2 * y2).sum((0, 2, 3))
+    y1 = rnd(torch.relu(F.conv2d(z, rnd(w1), b1, padding=1)))
+    y2 = F.conv2d(y1, rnd(w2), b2)
+    return y2.to(x.dtype), y2.sum((0, 2, 3)), (y2 * y2).sum((0, 2, 3))
 
 
 def plain_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
                           relu_in: bool, affine_in: bool):
     """Plain PyTorch version of the backward, the formulas of the TPU
     kernel's ``_bwd_kernel`` written out (no autograd): ``(dx, dsi, dti,
-    dw1, db1, dw2, db2)``."""
+    dw1, db1, dw2, db2)``; dx in x's dtype, the rest in si's."""
     grad = torch.nn.grad
+    bf16 = x.dtype == torch.bfloat16
+    rnd = _bf if bf16 else (lambda t: t)
     pre, z = _input_stage(x, si, ti, relu_in, affine_in)
-    y1 = torch.relu(F.conv2d(z, w1, b1, padding=1))
-    g2 = dy2 + dps[:, None, None] + 2.0 * y2 * dpss[:, None, None]
-    dy1 = grad.conv2d_input(y1.shape, w2, g2) * (y1 > 0)
-    dw2 = grad.conv2d_weight(y1, w2.shape, g2)
-    dz = grad.conv2d_input(z.shape, w1, dy1, padding=1)
-    dw1 = grad.conv2d_weight(z, w1.shape, dy1, padding=1)
+    w1, w2 = rnd(w1), rnd(w2)
+    y1 = rnd(torch.relu(F.conv2d(z, w1, b1, padding=1)))
+    g2 = dy2.to(dps.dtype) + dps[:, None, None] + \
+        2.0 * y2.to(dps.dtype) * dpss[:, None, None]
+    dy1 = grad.conv2d_input(y1.shape, w2, rnd(g2)) * (y1 > 0)
+    dw2 = grad.conv2d_weight(y1, w2.shape, rnd(g2))
+    dz = grad.conv2d_input(z.shape, w1, rnd(dy1), padding=1)
+    dw1 = grad.conv2d_weight(z, w1.shape, rnd(dy1), padding=1)
     if relu_in:
         dz = dz * (pre > 0)
     if affine_in:
-        dsi, dti = (dz * x).sum((0, 2, 3)), dz.sum((0, 2, 3))
+        dsi, dti = (dz * x.to(dz.dtype)).sum((0, 2, 3)), dz.sum((0, 2, 3))
         dx = dz * si[:, None, None]
     else:
         dsi, dti = torch.zeros_like(si), torch.zeros_like(ti)
         dx = dz
-    return dx, dsi, dti, dw1, dy1.sum((0, 2, 3)), dw2, g2.sum((0, 2, 3))
+    return (dx.to(x.dtype), dsi, dti, dw1, dy1.sum((0, 2, 3)), dw2,
+            g2.sum((0, 2, 3)))
 
 
 def _check(x, si, ti, w1, b1, w2, tensors) -> None:
@@ -85,9 +122,13 @@ def _check(x, si, ti, w1, b1, w2, tensors) -> None:
         if tuple(t.shape) != want[name]:
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
                              f'{want[name]}')
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'x must be float32 or bfloat16, got {x.dtype}')
     for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f'{name} must be float32, got {t.dtype}')
+        # the activations take x's dtype, the parameters and sums float32
+        want_dtype = x.dtype if name in ('x', 'y2', 'dy2') else torch.float32
+        if t.dtype != want_dtype:
+            raise TypeError(f'{name} must be {want_dtype}, got {t.dtype}')
         if t.device != x.device:
             raise ValueError(f'{name} is on {t.device}, x on {x.device}')
     if x.device.type not in ('cpu', 'cuda'):
@@ -106,6 +147,16 @@ def _dgrad_weight(w):
     return _gemm_weight(w.transpose(0, 1).flip(2, 3))
 
 
+def _gemm_weight_bf16(w):
+    """The bf16 instance's GEMM weight: ``_gemm_weight`` rounded to bf16,
+    K zero-padded to whole stages of 32 (Cin up to a multiple of 8)."""
+    cout, cin = w.shape[:2]
+    out = torch.zeros((cout, 4 * (-(-cin // 8) * 8)), dtype=torch.bfloat16,
+                      device=w.device)
+    out[:, :4 * cin] = w.reshape(cout, -1)
+    return out
+
+
 def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
@@ -119,10 +170,12 @@ def _launch(name: str, args, n_ptrs: int) -> None:
     build.check(lib, fn(*args), f'{name} launch')
 
 
-def wgrad_scratch(b: int, cin: int, h: int, w: int, cout: int) -> int:
+def wgrad_scratch(b: int, cin: int, h: int, w: int, cout: int,
+                  bf16: bool = False) -> int:
     """Floats of weight-gradient scratch the backward kernel needs."""
     lib = build.load('conv_block')
-    fn = lib.mmlf_conv_block_wgrad_scratch
+    fn = getattr(lib, 'mmlf_conv_block_wgrad_scratch' +
+                 ('_bf16' if bf16 else ''))
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_int] * 5
     return int(fn(b, cin, h, w, cout))
@@ -132,7 +185,8 @@ def fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
                           affine_in: bool):
     """Forward of one trunk block: ``(y2, ps, pss)``.
 
-    :param x: ``(B, Cin, H, W)`` float32 block input
+    :param x: ``(B, Cin, H, W)`` float32 or bfloat16 block input (y2
+        comes back in its dtype)
     :param si, ti: ``(Cin,)`` input affine (read only with ``affine_in``)
     :param w1, b1: ``(Cout, Cin, 2, 2)``, ``(Cout,)``; conv 1, pad 1
     :param w2, b2: ``(Cout, Cout, 2, 2)``, ``(Cout,)``; conv 2, pad 0
@@ -150,6 +204,8 @@ def fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
     cout = w1.shape[0]
     x, si, ti, b1, b2 = (t.contiguous() for t in (x, si, ti, b1, b2))
     new = dict(dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        return _fwd_bf16(x, si, ti, w1, b1, w2, b2, relu_in, affine_in, new)
     y1 = torch.empty((b, cout, h + 1, w + 1), **new)
     y2 = torch.empty((b, cout, h, w), **new)
     part = torch.empty(2 * b * cout, **new)
@@ -166,6 +222,34 @@ def fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
 
 
 fused_double_conv_fwd.launches = 0
+fused_double_conv_fwd.launches_bf16 = 0
+
+
+def _aligned(x):
+    """``x`` at a 4-byte aligned address: the bf16 kernels copy the aligned
+    words that hold its elements and pick halves by index parity."""
+    return x if x.data_ptr() % 4 == 0 else x.clone()
+
+
+def _fwd_bf16(x, si, ti, w1, b1, w2, b2, relu_in, affine_in, new):
+    """The bf16 instance's forward launch (arguments checked)."""
+    x = _aligned(x)
+    b, cin, h, w = x.shape
+    cout = w1.shape[0]
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    y1 = torch.empty((b, cout, h + 1, w + 1), **bf)
+    y2 = torch.empty((b, cout, h, w), **bf)
+    y2f = torch.empty((b, cout, h, w), **new)
+    part = torch.empty(2 * b * cout, **new)
+    ps, pss = torch.empty(cout, **new), torch.empty(cout, **new)
+    w1g, w2g = _gemm_weight_bf16(w1), _gemm_weight_bf16(w2)
+    args = _ptrs(x, si, ti, w1g, b1, w2g, b2, y1, y2, y2f, part, ps, pss)
+    _launch('mmlf_conv_block_fwd_bf16',
+            args + [b, cin, h, w, cout, int(relu_in), int(affine_in),
+                    x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream], 13)
+    fused_double_conv_fwd.launches_bf16 += 1
+    return y2, ps, pss
 
 
 def fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
@@ -191,6 +275,9 @@ def fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
     x, si, ti, b1, y2, dy2, dps, dpss = (
         t.contiguous() for t in (x, si, ti, b1, y2, dy2, dps, dpss))
     new = dict(dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        return _bwd_bf16(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, relu_in,
+                         affine_in, new)
     y1 = torch.empty((b, cout, h + 1, w + 1), **new)
     dy1 = torch.empty((b, cout, h + 1, w + 1), **new)
     g2 = torch.empty((b, cout, h, w), **new)
@@ -213,6 +300,40 @@ def fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
 
 
 fused_double_conv_bwd.launches = 0
+fused_double_conv_bwd.launches_bf16 = 0
+
+
+def _bwd_bf16(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, relu_in, affine_in,
+              new):
+    """The bf16 instance's backward launch (arguments checked)."""
+    x = _aligned(x)
+    b, cin, h, w = x.shape
+    cout = w1.shape[0]
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    y1 = torch.empty((b, cout, h + 1, w + 1), **bf)
+    g2 = torch.empty((b, cout, h, w), **bf)
+    dy1 = torch.empty((b, cout, h + 1, w + 1), **new)
+    dy1h = torch.empty((b, cout, h + 1, w + 1), **bf)
+    dz = torch.empty((b, cin, h, w), **new)
+    wpart = torch.empty(wgrad_scratch(b, cin, h, w, cout, bf16=True), **new)
+    bpart = torch.empty(2 * b * max(cin, cout), **new)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((cout, cin, 2, 2), **new)
+    dw2 = torch.empty((cout, cout, 2, 2), **new)
+    db1, db2 = torch.empty(cout, **new), torch.empty(cout, **new)
+    dsi, dti = torch.empty(cin, **new), torch.empty(cin, **new)
+    w1g = _gemm_weight_bf16(w1)
+    w1dg = _gemm_weight_bf16(w1.transpose(0, 1).flip(2, 3))
+    w2dg = _gemm_weight_bf16(w2.transpose(0, 1).flip(2, 3))
+    args = _ptrs(x, si, ti, w1g, b1, w1dg, w2dg, y2, dy2, dps, dpss, y1, g2,
+                 dy1, dy1h, dz, wpart, bpart, dx, dw1, db1, dw2, db2, dsi,
+                 dti)
+    _launch('mmlf_conv_block_bwd_bf16',
+            args + [b, cin, h, w, cout, int(relu_in), int(affine_in),
+                    x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream], 25)
+    fused_double_conv_bwd.launches_bf16 += 1
+    return dx, dsi, dti, dw1, db1, dw2, db2
 
 
 class _FusedDoubleConv(torch.autograd.Function):

@@ -12,7 +12,9 @@ fields of ``data/pipeline.PackedCache``:
 
 A pure copy of the selected level only; ``with_mpi=False`` skips the MPI
 field and returns ``None`` for it.  Layout and padding are the TPU
-kernel's, so the outputs compare bit for bit.
+kernel's, so the outputs compare bit for bit.  The image field is float32,
+or bfloat16 under ``--cache_bf16`` (the window comes back in its dtype, as
+the TPU kernel returns it); aux and mpi are float32.
 
 On CUDA tensors the wrapper launches the hand-written kernel
 ``csrc/window_gather.cu`` (its note gives the bound on an H100: bytes); on
@@ -20,7 +22,8 @@ CPU tensors it takes the plain PyTorch version beside it.  There is no
 fallback: a build or launch error raises.  The index vectors are host
 values (numpy or CPU tensors, as the host sampler draws them); the wrapper
 checks them against the level shapes before anything runs.
-``window_gather.launches`` counts kernel launches.
+``window_gather.launches`` counts kernel launches with a float32 image
+field, ``window_gather.launches_bf16`` those with a bfloat16 one.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ def _check(img_levels, aux_levels, mpi_levels, scene, level, ws_y, ws_x,
         raise ValueError('img/aux/mpi need the same number (>= 1) of levels')
     dev = img_levels[0].device
     n_scenes, ci = img_levels[0].shape[0], img_levels[0].shape[-1]
+    if img_levels[0].dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'img must be float32 or bfloat16, got '
+                        f'{img_levels[0].dtype}')
     fields = [('img', img_levels, ci), ('aux', aux_levels, AUX_CH)]
     if with_mpi:
         fields.append(('mpi', mpi_levels, MPI_CH))
@@ -75,9 +81,11 @@ def _check(img_levels, aux_levels, mpi_levels, scene, level, ws_y, ws_x,
             if tuple(t.shape) != want:
                 raise ValueError(f'{name} level {lev} has shape '
                                  f'{tuple(t.shape)}, expected {want}')
-            if t.dtype != torch.float32:
-                raise TypeError(f'{name} level {lev} must be float32, got '
-                                f'{t.dtype}')
+            want_dtype = img_levels[0].dtype if name == 'img' else \
+                torch.float32
+            if t.dtype != want_dtype:
+                raise TypeError(f'{name} level {lev} must be {want_dtype}, '
+                                f'got {t.dtype}')
             if t.device != dev:
                 raise ValueError(f'{name} level {lev} is on {t.device}, '
                                  f'img level 0 on {dev}')
@@ -110,7 +118,7 @@ def _launch(img_levels, aux_levels, mpi_levels, index, win, with_mpi,
     fn = lib.mmlf_window_gather_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int,
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_int,
                                                       ctypes.c_void_p]
     ptrs = ctypes.c_void_p * n_lev
     ints = ctypes.c_int * n_lev
@@ -126,7 +134,8 @@ def _launch(img_levels, aux_levels, mpi_levels, index, win, with_mpi,
     err = fn(ctypes.addressof(img_p), ctypes.addressof(aux_p),
              ctypes.addressof(mpi_p), ctypes.addressof(heights),
              ctypes.addressof(widths), n_lev, idx.data_ptr(),
-             index.shape[1], win, img_levels[0].shape[-1], int(with_mpi),
+             index.shape[1], win, img_levels[0].shape[-1],
+             img_levels[0].element_size(), int(with_mpi),
              out_img.data_ptr(), out_aux.data_ptr(),
              out_mpi.data_ptr() if with_mpi else None, dev.index, stream)
     build.check(lib, err, 'window gather kernel launch')
@@ -136,13 +145,14 @@ def window_gather(img_levels, aux_levels, mpi_levels, scene, level, ws_y,
                   ws_x, win: int, with_mpi: bool = True):
     """Gather per-sample windows from the packed pyramid.
 
-    :param img_levels: per level ``(S, Hf, Wf, CI)`` float32, CI % 4 == 0
+    :param img_levels: per level ``(S, Hf, Wf, CI)`` float32 (CI % 4 == 0)
+        or bfloat16 (CI % 8 == 0)
     :param aux_levels: per level ``(S, Hf, Wf*8)`` float32
     :param mpi_levels: per level ``(S, Hf, Wf*64)`` float32 (unused and may
         be None when ``with_mpi`` is False)
     :param scene, level, ws_y, ws_x: ``(B,)`` host integers (numpy or CPU
         tensors): scene index, 0-based level, window row and column start
-    :returns: ``(img, aux, mpi)``: ``(B, win, win, CI)``,
+    :returns: ``(img, aux, mpi)``: ``(B, win, win, CI)`` in img's dtype,
         ``(B, win, win*8)``, ``(B, win, win*64)`` or None
     """
     index = _check(img_levels, aux_levels, mpi_levels, scene, level, ws_y,
@@ -161,18 +171,23 @@ def window_gather(img_levels, aux_levels, mpi_levels, scene, level, ws_y,
             raise ValueError('the window gather kernel needs contiguous, '
                              '16-byte aligned levels')
     b, ci = index.shape[1], img_levels[0].shape[-1]
-    if ci % 4:
-        raise ValueError(f'the kernel copies 16-byte words: CI = {ci} is '
-                         f'not a multiple of 4')
-    out_img = torch.empty((b, win, win, ci), dtype=torch.float32, device=dev)
+    img_dtype = img_levels[0].dtype
+    if (ci * img_levels[0].element_size()) % 16:
+        raise ValueError(f'the kernel copies 16-byte words: CI = {ci} of '
+                         f'{img_dtype} is not a whole number of them')
+    out_img = torch.empty((b, win, win, ci), dtype=img_dtype, device=dev)
     out_aux = torch.empty((b, win, win * AUX_CH), dtype=torch.float32,
                           device=dev)
     out_mpi = torch.empty((b, win, win * MPI_CH), dtype=torch.float32,
                           device=dev) if with_mpi else None
     _launch(img_levels, aux_levels, mpi_levels, index, win, with_mpi,
             out_img, out_aux, out_mpi)
-    window_gather.launches += 1
+    if img_dtype == torch.bfloat16:
+        window_gather.launches_bf16 += 1
+    else:
+        window_gather.launches += 1
     return out_img, out_aux, out_mpi
 
 
 window_gather.launches = 0
+window_gather.launches_bf16 = 0

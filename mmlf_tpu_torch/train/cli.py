@@ -63,11 +63,12 @@ from .loop import train
 @click.option('--mesh_data', default=0, help='data-parallel mesh size; 0 = all devices (not ported: raises above 1)')
 @click.option('--train_seed', default=0, help='RNG seed for init + augmentation')
 @click.option('--train_steps', default=0, help='stop after N steps; 0 = run forever')
-@click.option('--bf16', is_flag=True, help='bfloat16 conv trunk (not ported: raises)')
+@click.option('--bf16', is_flag=True, help='bfloat16 conv trunk')
 @click.option('--host_pipeline', is_flag=True,
               help='force host-side window extraction (not ported: raises)')
 @click.option('--remat', is_flag=True,
-              help='rematerialize conv blocks (not ported: raises)')
+              help='rematerialize conv blocks (recompute them in the '
+                   'backward; the fused trunk ignores it)')
 @click.option('--pallas_trunk', is_flag=True,
               help='run the train-mode conv trunk (the four streams and '
                    'the out_net) through the fused double-conv kernel K3; '
@@ -81,7 +82,7 @@ from .loop import train
                    'unequal per-chunk masks (the README recipe measures '
                    'identical either way — docs/STATUS.md round 5)')
 @click.option('--cache_bf16', is_flag=True,
-              help='bfloat16 image scene cache (not ported: raises)')
+              help='bfloat16 image scene cache')
 @click.option('--train_profile', is_flag=True,
               help='capture a torch.profiler trace of steps 10-15')
 @click.option('--train_nan_guard', is_flag=True,

@@ -33,9 +33,12 @@ The counterpart of ``mmlf_tpu.train.loop`` (which reproduces the reference
     model, optimizer and iteration and reseeds the sampler from
     ``SeedSequence([train_seed, iteration])``.
 
-Runs on the card by default (``device='cuda'``) in float32 with TF32 off.
+Runs on the card by default (``device='cuda'``) in float32 with TF32 off;
+``--bf16`` runs the conv trunk in bfloat16 (plain or through K3's bf16
+instance under ``--pallas_trunk``), ``--cache_bf16`` keeps the image
+levels of the scene pyramid in bfloat16 (K1 cuts bf16 windows), and
+``--remat`` recomputes the plain trunk's blocks in the backward.
 Not ported (each raises NotImplementedError, naming its ROADMAP.md entry):
-``--bf16``, ``--cache_bf16``, ``--remat``,
 ``--mesh_data`` > 1, ``--model_unet``, ``--model_inn``,
 ``--host_pipeline`` and the host pipeline that the JAX package switches to
 when the scene cache exceeds 8 GiB or the scene shapes differ.
@@ -87,10 +90,6 @@ def check_ported(cfg: Config) -> None:
     if cfg.model_invertible:
         raise NotImplementedError(NOT_SUPPORTED_MSG)
     for flag, on, item in (
-            ('--bf16', cfg.bf16, 'Queue 1 item 11: training options'),
-            ('--cache_bf16', cfg.cache_bf16,
-             'Queue 1 item 11: training options'),
-            ('--remat', cfg.remat, 'Queue 1 item 11: training options'),
             ('--host_pipeline', cfg.host_pipeline,
              'Queue 1 item 11: training options'),
             ('--mesh_data > 1', cfg.mesh_data > 1,

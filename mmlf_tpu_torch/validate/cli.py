@@ -24,11 +24,14 @@ receptive radius, 25 px at full width) the members, and so the metrics,
 differ slightly from the whole-scene run, as in the JAX package.
 
 Runs on the card by default (``--device cuda``) in float32 with TF32 off,
-and raises when CUDA is asked for but absent.  Reads the JAX package's
+and raises when CUDA is asked for but absent.  A checkpoint whose stored
+config has ``bf16`` evaluates with the bfloat16 trunk, BatchNorm folded
+into the float32 weights first (as ``mmlf_tpu.validate.cli``); the
+posterior kernel and the metrics stay float32.  Reads the JAX package's
 ``checkpoint.msgpack`` (with its ``hyper_parameters.json``) first, as
 ``mmlf_tpu.validate.cli`` does, else a reference-format ``checkpoint.pt``.
 Not ported yet (each raises NotImplementedError): ``--mesh_space``,
-``--mesh_ensemble``, U-Net / INN / invertible and bf16 checkpoints.
+``--mesh_ensemble``, U-Net / INN / invertible checkpoints.
 ``--jax_cache`` has no counterpart: nothing is compiled per scene here.
 """
 

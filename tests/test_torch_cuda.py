@@ -468,3 +468,148 @@ def test_served_ensemble_on_card_matches_cpu(cuda, tmp_path):
                                    atol=5e-4)
     torch.testing.assert_close(got['posterior'].cpu(), want['posterior'],
                                rtol=1e-3, atol=1e-4)
+
+
+# K3's bf16 instance against its plain version, evaluated in float64 (bf16
+# activations, float64 parameters: the same rounding points, every sum in
+# float64), beside the float32 plain version (fp32 convs, TF32 off, on the
+# bf16-rounded operands).  On dyadic inputs the input stage, the conv1 sums
+# and so y1 and its ReLU mask are exact in any order.  The later fp32 sums
+# (conv2, the dgrads) may put a value the other side of a bf16 rounding
+# boundary (y2, g2, dy1's bf16 copy, dx), and a flipped dy1 moves the dgrad
+# that sums over it: cuDNN's fp32 dgrad flips ~0.04% of dx at 280->280 by
+# more than one ulp, the kernel ~1e-6 (measured on an H100).  So each
+# output's max error against the float64 evaluation stays within
+# K3_PREC_FACTOR x the float32 plain version's (floored at one ulp of its
+# largest magnitude in its dtype), and the share of bf16 elements more
+# than one ulp off within the float32 plain version's (floored at 1e-5).
+K3_BF16_BLOCKS = [(27, 70, False, False), (70, 70, True, True),
+                  (280, 280, True, True), (280, 2, True, True),
+                  (280, 108, True, True), (70, 70, True, False)]
+
+
+def _bf16_errors(got, ref):
+    """``(max abs error, share of elements more than one ulp off)`` of
+    ``got`` against the float64 ``ref``; one bf16 ulp is at most 2^-7 of
+    the magnitude (the share is 0 for float32 outputs)."""
+    g, r = got.double(), ref.double()
+    err = float((g - r).abs().max())
+    if got.dtype != torch.bfloat16:
+        return err, 0.0
+    off = (g - r).abs() > 2.0 ** -7 * r.abs() + 1e-12
+    return err, float(off.double().mean())
+
+
+def _assert_bf16_accurate(got, plain, ref, name):
+    assert got.shape == ref.shape and got.dtype == plain.dtype, name
+    e_k, s_k = _bf16_errors(got, ref)
+    e_p, s_p = _bf16_errors(plain, ref)
+    ulp = 2.0 ** (-8 if got.dtype == torch.bfloat16 else -24)
+    floor = ulp * float(ref.abs().max())
+    assert e_k <= K3_PREC_FACTOR * max(e_p, floor), (name, e_k, e_p)
+    assert s_k <= max(s_p, 1e-5), (name, s_k, s_p)
+
+
+@pytest.mark.parametrize('size', [(64, 96, 96), (3, 13, 17)],
+                         ids=['recipe', 'ragged'])
+@pytest.mark.parametrize('cin,cout,relu_in,affine_in', K3_BF16_BLOCKS)
+def test_conv_block_bf16_kernels_match_plain(cuda, size, cin, cout, relu_in,
+                                             affine_in):
+    b, h, w = size
+    x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = _k3_inputs(
+        cuda, b, h, w, cin, cout, seed=cin + cout + h)
+    x, dy2 = x.bfloat16(), dy2.bfloat16()
+    d = [a.double() for a in (si, ti, w1, b1, w2, b2, dps, dpss)]
+    counts = (C.fused_double_conv_fwd.launches_bf16,
+              C.fused_double_conv_bwd.launches_bf16,
+              C.fused_double_conv_fwd.launches,
+              C.fused_double_conv_bwd.launches)
+    fa = (x, si, ti, w1, b1, w2, b2, relu_in, affine_in)
+    got = C.fused_double_conv_fwd(*fa)
+    plain = C.plain_double_conv_fwd(*fa)
+    ref = C.plain_double_conv_fwd(x, *d[:6], relu_in, affine_in)
+    for g, p, r, name in zip(got, plain, ref, ('y2', 'ps', 'pss')):
+        _assert_bf16_accurate(g, p, r, name)
+    y2 = ref[0]
+    ba = (x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, relu_in, affine_in)
+    got = C.fused_double_conv_bwd(*ba)
+    plain = C.plain_double_conv_bwd(*ba)
+    ref = C.plain_double_conv_bwd(x, *d[:5], y2, dy2, *d[6:], relu_in,
+                                  affine_in)
+    torch.cuda.synchronize()
+    # the bf16 counters moved, the fp32 ones did not
+    assert (C.fused_double_conv_fwd.launches_bf16 - counts[0],
+            C.fused_double_conv_bwd.launches_bf16 - counts[1],
+            C.fused_double_conv_fwd.launches - counts[2],
+            C.fused_double_conv_bwd.launches - counts[3]) == (1, 1, 0, 0)
+    for g, p, r, name in zip(got, plain, ref, ('dx', 'dsi', 'dti', 'dw1',
+                                                'db1', 'dw2', 'db2')):
+        _assert_bf16_accurate(g, p, r, name)
+    if not affine_in:
+        assert float(got[1].abs().max() + got[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('with_mpi', [False, True])
+def test_window_gather_bf16_matches_plain(cuda, with_mpi):
+    """K1 with a bfloat16 image field (``--cache_bf16``) at the recipe
+    shape: still a copy, bit-identical to the plain version, counted in
+    ``launches_bf16``."""
+    img, aux, mpi = _levels(cuda)
+    img = [t.bfloat16() for t in img]
+    rng = np.random.default_rng(2)
+    b, win = 64, 128
+    level = np.arange(b) % 4
+    hf = np.array([t.shape[1] for t in img])[level]
+    wy = rng.integers(0, hf - win + 1) // 8 * 8
+    wx = rng.integers(0, hf - win + 1) // 16 * 16
+    scene = rng.integers(0, 4, b)
+    before = (W.window_gather.launches_bf16, W.window_gather.launches)
+    got = W.window_gather(img, aux, mpi, scene, level, wy, wx, win,
+                          with_mpi=with_mpi)
+    torch.cuda.synchronize()
+    assert (W.window_gather.launches_bf16 - before[0],
+            W.window_gather.launches - before[1]) == (1, 0)
+    assert got[0].dtype == torch.bfloat16
+    index = np.stack([scene, level, wy, wx]).astype(np.int32)
+    want = W.plain_window_gather(img, aux, mpi, index, win, with_mpi)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('bf16', [False, True], ids=['fp32', 'bf16'])
+def test_remat_on_card(cuda, bf16):
+    """``--remat`` on the card, where the backward (and so each block's
+    recomputation) runs on autograd's device thread: the BN running
+    statistics are updated once per use of a block in the forward (a
+    stream net serves two streams), not again in the recomputation, and
+    with cuDNN's deterministic algorithms the gradients equal those
+    without it."""
+    kw = dict(model_chs=8, model_views=9, model_in_blocks=1,
+              model_out_blocks=2, model_uncert=True, bf16=bf16)
+    gen = torch.Generator().manual_seed(0)
+    stacks = [torch.rand((2, 9, 24, 24, 3), generator=gen).to(cuda)
+              for _ in range(4)]
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            cfg = Config(remat=remat, **kw).finalize()
+            model = init_live_(FeedForward.from_config(cfg), seed=4).to(cuda)
+            model.train()
+            out = model(*stacks)
+            (out['mean'].abs().mean() + 0.1 * out['logvar'].mean()).backward()
+            runs.append(model)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref, model = runs
+    for (name, b), c in zip(model.named_buffers(), ref.buffers()):
+        if name.endswith('num_batches_tracked'):
+            uses = 2 if name.startswith('in_net') else 1
+            assert int(b) == int(c) == uses, name
+        assert torch.equal(b, c), name
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert torch.equal(p.grad, q.grad), name
