@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. card    — the card's name and power limit (nvidia-smi);
 2. build   — every CUDA kernel of mmlf_tpu_torch/csrc, one nvcc each,
-             started together, with each kernel's ptxas report;
+             started together, with each kernel's ptxas report (and the
+             registers and spill bytes of each bf16 conv2x2_kernel
+             instance);
 3. data    — 4 synthetic 512² train scenes (seeds 0-3) and one val scene
              (seed 7), one process each;
 4. train   — the README UPR recipe through the train CLI at full width
@@ -41,7 +43,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              head's 280→108), their times, the plain versions', the bound
              (3xTF32 on the tensor cores; the FFMA bound as context) and,
              as context, the port's plain ConvBlock (cuDNN) forward and
-             backward;
+             backward; a profile of the 280→280 block by CUDA kernel, the
+             backward split into its conv GEMMs and weight gradients;
 7b. train_bf16 — the recipe with ``--bf16 --cache_bf16`` (a bf16 trunk on
              cuDNN's bf16 convs, K1 cutting bf16 image windows) for
              TRAIN_STEPS steps, checked as train (K1's bf16 instance
@@ -54,7 +57,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              recipe's blocks, each output within 4x the float32 plain
              version's error (fp32 convs, TF32 off, on bf16-rounded
              operands; ``k3_bf16_check``); times, the bound at the dense
-             bf16 tensor-core peak and cuDNN's bf16 ConvBlock as context;
+             bf16 tensor-core peak and cuDNN's bf16 ConvBlock as context,
+             and the 280→280 profile and backward split as in K3;
 8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
@@ -740,26 +744,62 @@ def k3_precision(C, b, h, w, cin, cout, seed) -> dict:
     return res
 
 
-def k3_breakdown(C, fa, ba) -> None:
+def k3_breakdown(C, fa, ba, tag: str = '') -> None:
     """Device time by CUDA kernel of one K3 forward and one backward
-    (torch.profiler), to show where a block's time goes."""
+    (torch.profiler, the mean of 3 calls), to show where a block's time
+    goes, and the backward's split into its conv GEMMs (conv2x2_kernel),
+    its weight gradients (wgrad_kernel) and the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    calls = 3
     for name, fn, args in (('fwd', C.fused_double_conv_fwd, fa),
                            ('bwd', C.fused_double_conv_bwd, ba)):
         fn(*args)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*args)
+            for _ in range(calls):
+                fn(*args)
             torch.cuda.synchronize()
-        rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+        rows = sorted(((e.key, e.device_time_total / 1e3 / calls,
+                        e.count // calls)
                        for e in prof.key_averages()
                        if e.device_time_total > 0), key=lambda r: -r[1])
         if not rows:
-            log(f'k3 breakdown {name}: the profiler saw no device time')
+            log(f'k3 breakdown{tag} {name}: the profiler saw no device time')
             continue
-        log(f'k3 breakdown {name} (280->280, profiler device ms): '
-            + '; '.join(f'{k[:60]} x{n} {ms:.3f}' for k, ms, n in rows[:8]))
+        log(f'k3 breakdown{tag} {name} (280->280, profiler device ms a '
+            f'call): ' + '; '.join(f'{k[:60]} x{n} {ms:.3f}'
+                                   for k, ms, n in rows[:8]))
+        if name == 'bwd':
+            split = {'conv2x2_kernel': 0.0, 'wgrad_kernel': 0.0}
+            rest = 0.0
+            for key, ms, _ in rows:
+                part = next((k for k in split if k in key), None)
+                if part is None:
+                    rest += ms
+                else:
+                    split[part] += ms
+            log(f'k3 breakdown{tag} bwd split (280->280, device ms a call): '
+                f'conv GEMMs (conv2x2_kernel) '
+                f'{split["conv2x2_kernel"]:.3f}, weight gradients '
+                f'(wgrad_kernel) {split["wgrad_kernel"]:.3f}, other '
+                f'{rest:.3f}')
+
+
+def conv2x2_instances(report: str) -> str:
+    """Registers and spill-store bytes of each bf16 conv2x2_kernel instance
+    (tile rows x columns, output type) in conv_block's ptxas -v report."""
+    rows = []
+    for entry in report.split('Compiling entry function')[1:]:
+        name = re.search(r"conv2x2_kernelINS_\d+(Span)?CfgILi(\d+)ELi(\d+)E"
+                         r"(NS_4Bf16E)?EE(\w)", entry)
+        regs = re.search(r'Used (\d+) registers', entry)
+        spill = re.search(r'(\d+) bytes spill stores', entry)
+        if name and (name.group(1) or name.group(4)) and regs and spill:
+            out = {'f': 'fp32 out', 't': 'bf16 out'}.get(name.group(5), '?')
+            rows.append(f'{128 * int(name.group(2))}x{name.group(3)} {out}: '
+                        f'{regs.group(1)} regs / {spill.group(1)} B spilled')
+    return ', '.join(rows)
 
 
 def k3_bf16_check(got, plain, ref, what: str) -> float:
@@ -897,7 +937,7 @@ def phase_conv_block(M, bf16: bool = False) -> dict:
         cudnn_fb = cuda_ms(fwd_bwd, reps=5)
         del blk, xb
         if (cin, cout) == (280, 280):
-            k3_breakdown(C, fa, ba)
+            k3_breakdown(C, fa, ba, tag)
         log(f'kernel fused_double_conv{tag} {cin}->{cout} B={b} {h}x{w} '
             f'(relu_in {relu_in}, affine_in {affine_in}): fwd {ms_f:.3f} ms '
             f'(bound {bound_f:.3f} ms, {by_f}; plain {plain_f:.3f} ms), '
@@ -1482,6 +1522,8 @@ def main() -> int:
             f'{max(spills)} bytes')
     log('build: posterior by bins per thread: '
         + k2_instances(build.ptxas_report('posterior')))
+    log('build: conv_block bf16 conv2x2_kernel instances: '
+        + conv2x2_instances(build.ptxas_report('conv_block')))
     if mode == ['k3']:
         phase_conv_block(M)
         phase_conv_block(M, bf16=True)

@@ -102,20 +102,50 @@
 //             pre = x si + ti in fp32 with fp32 si, ti; dx = bf16(dz si).
 // Every GEMM takes bf16 operands in wgmma m64nNk16 .bf16 with fp32 sums:
 // one product where 3xTF32 takes three, so no split.  A stage is 32 k (one
-// 64-byte operand row holds 16 bf16 pairs), so the swizzled tiles and the
-// descriptors keep their byte layout.  A bf16 tap is 2 bytes, which
-// cp.async cannot copy, and a tap pair is 4-byte aligned only at an even
-// element index, so the producers copy the aligned 4-byte word that holds
-// each tap (and each gradient value of a wgrad) into a ring of words and
-// pick the halves by parity in the transform; the weights (K zero-padded
-// by the caller to whole stages) take 16-byte cp.async as in fp32.  A
-// ring of words for 32-deep stages leaves shared memory for 128-row tiles
-// only, so every bf16 tile has MI = 1.  (Plain loads of the taps make each
-// stage wait for them: the block then takes as long as the fp32 one
-// forward and 1.4x backward on an H100.  The weight-gradient producers
-// issue 34 copies a stage and take their addresses and index parities once
-// a stage: per copy, they spill up to 324 bytes and the 280 -> 280
-// backward takes twice as long.)
+// 64-byte operand row holds 16 bf16 pairs, 8 input channels of a conv), so
+// the swizzled tiles and the descriptors keep their byte layout.
+//   * The conv GEMMs (y1, y2, dgrad2, dgrad1) are fed by a ring of channel
+//     spans (SpanLoader).  A tile's TM output pixels are consecutive in
+//     (b, oy, ox), and the tap (0, 0) of pixel (oy, ox) sits at (oy - pad)
+//     win + ox - pad of its channel plane, a non-decreasing offset, so in
+//     each image the tile touches, the in-image taps of a channel lie in
+//     one run of the plane: from max(0, that offset of its first pixel) to
+//     min(hw, that of its last + win + 2), about TM + win elements.  For
+//     each channel of a stage (producer warp c copies channel c), each run
+//     is widened outward to 16-byte chunks and copied with one
+//     cp.async.bulk that completes on the slot's mbarrier.  The stage's
+//     weight rows (the caller's stage-major copy, (steps, N, 32), each
+//     row's four 16-byte chunks already in their swizzled places) go
+//     straight into the operand buffer with one more, a stage ahead.  Bulk
+//     copies run in the async proxy, so the fence that publishes the
+//     operand tiles waits for none of them, and the ring of STAGES slots
+//     runs ahead.  The producers wait on the mbarrier, read every tap of
+//     the stage with 2-byte shared loads (unmasked: a tap outside the
+//     image reads whatever lies there), apply the input stage to bf16
+//     pairs (mul.rn / add.rn .bf16x2 round each lane once, as the fp32
+//     operation and its rounding to bf16 do: a product or sum of two bf16
+//     values that fp32 rounds at all lies far from a bf16 rounding
+//     boundary) and the zero padding as lane masks, and write the swizzled
+//     A tile 16 bytes (two channels) at a time.  A slot's region for a
+//     channel holds span_elems elements, computed at launch for the shape;
+//     a run never leaves its plane, and its chunks never leave the
+//     allocation, which the caller pads to a 16-byte multiple.  The span
+//     ring is ~6-8 KB a stage (the word ring: 16.5 KB), so the narrow
+//     tiles take 256 rows as fp32's do.  What holds it from the bound
+//     (measured on the card with k3_variants.py, 280 -> 280 forward): with
+//     the producers' transform left out the block takes ~0.8x as long;
+//     that floor is the consumers' (a wait for each stage's two products,
+//     then their flush into the fp32 sums) and the epilogue's, ~3x the
+//     tensor-core time of a stage.
+//   * The weight gradients keep the cp.async ring (WgradLoader): a bf16
+//     value is 2 bytes, which cp.async cannot copy, and a pair is 4-byte
+//     aligned only at an even element index, so their producers copy the
+//     aligned 4-byte word that holds each tap and gradient value into a
+//     ring of words and pick the halves by parity in the transform.  That
+//     ring leaves room for 128-row tiles only.  (They issue 34 copies a
+//     stage and take their addresses and index parities once a stage: per
+//     copy, they spill up to 324 bytes and the 280 -> 280 backward takes
+//     twice as long.)
 // Bound on an H100 SXM: operations at the dense bf16 tensor-core peak, 989
 // TFLOP/s: 0.76 ms forward and 1.9 ms backward at 280 -> 280, B 64, 96x96.
 
@@ -123,10 +153,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int THREADS = 256;   // two warpgroups; a GEMM block has 2 x
-constexpr int STAGES = 4;      // cp.async ring
+constexpr int STAGES = 4;      // slots of the cp.async ring or the span ring
 constexpr int NBUF = 3;        // operand buffers between producers and consumers
 // registers a thread, moved by setmaxnreg: 2 x 128 x (176 + 80) = 65536
 constexpr int CONSUMER_REGS = 176, PRODUCER_REGS = 80;
@@ -147,11 +179,9 @@ struct Tf32x3 {
 
 struct Bf16 {
   using T = uint16_t;
-  using R = uint32_t;            // the ring holds aligned bf16 pairs
+  using R = uint32_t;            // the wgrad ring holds aligned bf16 pairs
   static constexpr int BK = 32;
   static constexpr int NOP = 1;
-  // K zero-padded to whole stages: Cin rounded up to 8 channels
-  static __host__ __device__ int ldw(int cin) { return 4 * ((cin + 7) / 8 * 8); }
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -162,6 +192,29 @@ __device__ __forceinline__ uint16_t f2bf(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 __device__ __forceinline__ float rbf(float v) { return to_f(f2bf(v)); }
+// Two bf16 lanes at once, each rounded once, as the fp32 operation then
+// f2bf rounds it: a product or sum of two bf16 values that fp32 rounds at
+// all lies far from any bf16 rounding boundary.
+__device__ __forceinline__ uint32_t mul_bf2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t relu_bf2(uint32_t a) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(0u));
+  return d;
+}
+// the bf16 value v (exactly representable) in both lanes
+__device__ __forceinline__ uint32_t splat_bf2(float v) {
+  return (__float_as_uint(v) >> 16) * 0x10001u;
+}
+
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(uint16_t* p, float v) { *p = f2bf(v); }
 
@@ -231,6 +284,44 @@ __device__ __forceinline__ void cp_async_wait() {
 // proxy (before the barrier that publishes them).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers (shared memory, 8 bytes each) that bulk copies complete on.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// after mbarrier.init, before any other thread uses the barriers
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this thread's arrival, announcing `bytes` more bytes of copies to come
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// bytes (a multiple of 16) from global to shared memory, both 16-byte
+// aligned, in the async proxy; completes on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 template <int N>
@@ -575,10 +666,9 @@ __device__ __forceinline__ void copy1(uint32_t* dst, const uint16_t* src,
 // wgmma and their fp32 sums) and two producers (the copies and the
 // transform), THREADS threads each side.
 template <int MI_, int TN_, class P_>
-struct Cfg {
+struct GemmTile {
   using P = P_;
   using T = typename P::T;
-  using R = typename P::R;
   static constexpr int MI = MI_, TN = TN_, BK = P::BK;
   static constexpr int TM = 128 * MI;
   static constexpr int ACC = TN / 2;               // fp32 sums a thread, m64
@@ -586,25 +676,57 @@ struct Cfg {
   // 16 bf16 pairs): A (TM rows), B (TN rows); hi and lo for 3xTF32
   static constexpr int OPA = TM * 16, OPB = TN * 16;
   static constexpr int OP = P::NOP * (OPA + OPB);
+  static constexpr int OA = TM + 4;                // epilogue tile stride
+  static constexpr int EPI = 4 * TN * OA;
+  static_assert(TN % 8 == 0 && TN <= 256, "wgmma N");
+};
+
+// A tile fed by the cp.async ring of words (ConvLoader, WgradLoader).
+template <int MI_, int TN_, class P_>
+struct Cfg : GemmTile<MI_, TN_, P_> {
+  using G = GemmTile<MI_, TN_, P_>;
+  using R = typename P_::R;
+  static constexpr bool SPANS = false;
   // cp.async ring, 4-byte entries a slot: A (BK x TM, row stride TM + 1:
   // a tap, or the word that holds a bf16 tap); B conv (TN weight rows of
   // a stage, 80 bytes apart) or wgrad (BK x TN, row stride TN + 1)
-  static constexpr int RA = TM + 1, RB = TN + 1, RBC = 20;
-  static constexpr int RAW_A = BK * RA;
-  static constexpr int RAW_B = TN * RBC > BK * RB ? TN * RBC : BK * RB;
-  static constexpr int MAIN = 4 * NBUF * OP + 4 * STAGES * (RAW_A + RAW_B) +
-                              STAGES * THREADS;
-  static constexpr int OA = TM + 4;                // epilogue tile stride
-  static constexpr int EPI = 4 * TN * OA;
-  static constexpr int SMEM = MAIN > EPI ? MAIN : EPI;
+  static constexpr int RA = G::TM + 1, RB = TN_ + 1, RBC = 20;
+  static constexpr int RAW_A = G::BK * RA;
+  static constexpr int RAW_B =
+      TN_ * RBC > G::BK * RB ? TN_ * RBC : G::BK * RB;
+  static constexpr int MAIN = 4 * NBUF * G::OP +
+                              4 * STAGES * (RAW_A + RAW_B) + STAGES * THREADS;
+  static constexpr int SMEM = MAIN > G::EPI ? MAIN : G::EPI;
   static_assert(sizeof(R) == 4, "ring entries of 4 bytes");
-  static_assert(TN % 8 == 0 && TN <= 256, "wgmma N");
   static_assert(SMEM <= 220 * 1024, "shared memory (+ si, ti)");
 };
 
+// A bf16 conv tile fed by the span ring (SpanLoader): a slot holds the
+// stage's 8 channel regions of `span` elements each (a launch parameter,
+// span_elems); the weight rows go straight to the operand buffers.  The
+// mbarriers (STAGES slots, NBUF weight tiles) sit after the main
+// area or the epilogue tile, whichever is larger.
+template <int MI_, int TN_>
+struct SpanCfg : GemmTile<MI_, TN_, Bf16> {
+  using G = GemmTile<MI_, TN_, Bf16>;
+  static constexpr bool SPANS = true;
+  static constexpr int CPS = Bf16::BK / 4;         // channels a stage
+  static __host__ __device__ long long area(int span) {
+    const long long main =
+        4LL * NBUF * G::OP + 2LL * STAGES * CPS * span;
+    return main > G::EPI ? main : G::EPI;
+  }
+  // + the mbarriers; si and ti follow
+  static __host__ __device__ long long smem(int span) {
+    return area(span) + 8 * (STAGES + NBUF);
+  }
+};
+
 // 280 -> 144 + 144, 108 -> 112, 70 -> 72, 27 -> 32, 2 -> 8.  The narrow
-// tiles take 256 rows in fp32; bf16's ring of 32-deep stages leaves room
-// for 128 only.
+// tiles take 256 rows (MI = 2); the wide ones 128, since the consumers'
+// two accumulator sets leave no registers for two.  The bf16 conv tiles
+// take the span ring; bf16's word ring of 32-deep stages (wgrad) leaves
+// room for 128 rows only.
 template <class P>
 struct Tiles {
   static constexpr int MIN = P::NOP == 2 ? 2 : 1;
@@ -615,33 +737,72 @@ struct Tiles {
   using T8 = Cfg<MIN, 8, P>;
 };
 
-// Views of the dynamic shared memory: NBUF buffers of a stage's operand
-// tiles, the cp.async ring, the wgrad tap masks, si and ti, and the
-// epilogue's output tile over the first three.
+struct SpanTiles {
+  using T144 = SpanCfg<1, 144>;
+  using T112 = SpanCfg<1, 112>;
+  using T72 = SpanCfg<2, 72>;
+  using T32 = SpanCfg<2, 32>;
+  using T8 = SpanCfg<2, 8>;
+};
+
+// The conv tiles of an instance: the word ring for fp32, spans for bf16.
+template <class P>
+using ConvTiles =
+    typename std::conditional<P::NOP == 1, SpanTiles, Tiles<P>>::type;
+
+// Views of the dynamic shared memory common to both rings: NBUF buffers of
+// a stage's operand tiles, the epilogue's output tile over them (and over
+// the ring after them), and si, ti after the whole.
 template <class C>
-struct Smem {
-  using R = typename C::R;
+struct OpSmem {
   float* op;                   // [NBUF][A hi, (A lo), B hi, (B lo)]
-  R* raw_a;
-  R* raw_b;
-  unsigned char* mask;
   float* out;
   float* st;                   // si, ti (affine input stage)
 
-  __device__ explicit Smem(unsigned char* base) {
-    op = reinterpret_cast<float*>(base);
-    raw_a = reinterpret_cast<R*>(op + NBUF * C::OP);
-    raw_b = raw_a + STAGES * C::RAW_A;
-    mask = reinterpret_cast<unsigned char*>(raw_b + STAGES * C::RAW_B);
-    out = reinterpret_cast<float*>(base);
-    st = reinterpret_cast<float*>(base + C::SMEM);
-  }
+  __device__ OpSmem(unsigned char* base, long long st_offset)
+      : op(reinterpret_cast<float*>(base)),
+        out(reinterpret_cast<float*>(base)),
+        st(reinterpret_cast<float*>(base + st_offset)) {}
   __device__ float* a_hi(int buf) const { return op + buf * C::OP; }
   __device__ float* a_lo(int buf) const { return a_hi(buf) + C::OPA; }
   __device__ float* b_hi(int buf) const {
     return a_hi(buf) + C::P::NOP * C::OPA;
   }
   __device__ float* b_lo(int buf) const { return b_hi(buf) + C::OPB; }
+};
+
+// ... with the cp.async ring of words and the wgrad tap masks.
+template <class C>
+struct Smem : OpSmem<C> {
+  using R = typename C::R;
+  R* raw_a;
+  R* raw_b;
+  unsigned char* mask;
+
+  __device__ explicit Smem(unsigned char* base, int = 0)
+      : OpSmem<C>(base, C::SMEM) {
+    raw_a = reinterpret_cast<R*>(this->op + NBUF * C::OP);
+    raw_b = raw_a + STAGES * C::RAW_A;
+    mask = reinterpret_cast<unsigned char*>(raw_b + STAGES * C::RAW_B);
+  }
+};
+
+// ... with the span ring: slot s holds the channel regions ring + s CPS
+// span and full[s] completes when they arrived; wfull[b] completes when
+// the weight rows of operand buffer b arrived.
+template <class C>
+struct SpanSmem : OpSmem<C> {
+  uint16_t* ring;
+  uint64_t* full;
+  uint64_t* wfull;
+  int span;
+
+  __device__ SpanSmem(unsigned char* base, int span_)
+      : OpSmem<C>(base, C::smem(span_)), span(span_) {
+    ring = reinterpret_cast<uint16_t*>(this->op + NBUF * C::OP);
+    full = reinterpret_cast<uint64_t*>(base + C::area(span_));
+    wfull = full + STAGES;
+  }
 };
 
 // Named barriers: the producers among themselves, the consumers among
@@ -666,7 +827,7 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // half the two cross terms lo*hi' and hi*lo', then the two hi*hi' terms.
 // bf16: the two 16-deep halves.  A row is 64 bytes (16 words).
 template <class C>
-__device__ __forceinline__ void stage_products(const Smem<C>& sm, int buf,
+__device__ __forceinline__ void stage_products(const OpSmem<C>& sm, int buf,
                                                int wg,
                                                float (&t)[C::MI][C::ACC]) {
   const uint64_t bh = op_desc(sm.b_hi(buf));
@@ -705,7 +866,7 @@ __device__ __forceinline__ void stage_products(const Smem<C>& sm, int buf,
 // into fp32 registers; the result is left as the (TN, TM) tile
 // sm.out[col * OA + row].  Thread ct = threadIdx.x < THREADS.
 template <class C>
-__device__ __forceinline__ void consume(const Smem<C>& sm, int steps) {
+__device__ __forceinline__ void consume(const OpSmem<C>& sm, int steps) {
   const int ct = threadIdx.x, wg = ct >> 7;
   float acc[C::MI][C::ACC], t[C::MI][C::ACC];
 #pragma unroll
@@ -796,12 +957,11 @@ __device__ __forceinline__ void put_bf16(float* tile, int row, int k,
   reinterpret_cast<uint16_t*>(tile)[2 * op_offset(row, k >> 1) + (k & 1)] = v;
 }
 
-// conv2x2 operands: rows are pixels, k = ci*4 + tap, a stage is BK / 4
-// input channels.  Producer thread pt copies and transforms the 4 taps of
-// pixel pt % TM in channels pt / TM + TPP j (fp32: the taps; bf16: the
-// aligned words that hold them, Taps::copy).  The weight tile (TN x BK of
-// the K-major (N, ldw) weight) is copied 16 bytes a thread with k fastest
-// (coalesced) and transformed with n fastest (conflict-free).
+// conv2x2 operands, float32: rows are pixels, k = ci*4 + tap, a stage is
+// BK / 4 input channels.  Producer thread pt copies and transforms the 4
+// taps of pixel pt % TM in channels pt / TM + TPP j.  The weight tile (TN x
+// BK of the K-major (N, ldw) weight) is copied 16 bytes a thread with k
+// fastest (coalesced) and transformed with n fastest (conflict-free).
 template <class C>
 struct ConvLoader {
   using T = typename C::T;
@@ -811,6 +971,7 @@ struct ConvLoader {
   static constexpr int CPT = CPS / TPP;              // channels a thread
   static constexpr int EPC = 16 / (int)sizeof(T);    // elements a chunk
   static constexpr int WPT = (4 * C::TN + THREADS - 1) / THREADS;
+  static_assert(C::P::NOP == 2, "the bf16 conv takes SpanLoader");
   const Smem<C>& sm;
   const T* __restrict__ x;
   const T* __restrict__ w;
@@ -851,28 +1012,15 @@ struct ConvLoader {
         t = sm.st[cin + ci];
       }
       float v[4];
-      if constexpr (C::P::NOP == 1) {
-        pair_taps(ra + c * 4 * C::RA + row, C::RA, (taps.base + ci * hw) & 1,
-                  win, v);
-      } else {
 #pragma unroll
-        for (int tap = 0; tap < 4; ++tap)
-          v[tap] = ra[(c * 4 + tap) * C::RA + row];
-      }
+      for (int tap = 0; tap < 4; ++tap)
+        v[tap] = ra[(c * 4 + tap) * C::RA + row];
 #pragma unroll
       for (int tap = 0; tap < 4; ++tap) {
         const bool in = ok && (taps.inside >> tap & 1);
-        v[tap] = in ? in_stage_fwd<typename C::P>(v[tap], s, t, flags) : 0.f;
+        v[tap] = in ? in_stage(v[tap], s, t, flags) : 0.f;
       }
-      if constexpr (C::P::NOP == 1) {
-        // k = 4c .. 4c + 3: two words of one 16-byte chunk
-        uint2 q;
-        q.x = f2bf(v[0]) | (uint32_t)f2bf(v[1]) << 16;
-        q.y = f2bf(v[2]) | (uint32_t)f2bf(v[3]) << 16;
-        *reinterpret_cast<uint2*>(sm.a_hi(buf) + op_offset(row, 2 * c)) = q;
-      } else {
-        store_split4(sm.a_hi(buf), sm.a_lo(buf), op_offset(row, c * 4), v);
-      }
+      store_split4(sm.a_hi(buf), sm.a_lo(buf), op_offset(row, c * 4), v);
     }
     const R* rb = sm.raw_b + slot * C::RAW_B;
 #pragma unroll
@@ -880,19 +1028,215 @@ struct ConvLoader {
       const int e = pt + i * THREADS;
       if (e >= 4 * C::TN) break;
       const int n = e % C::TN, c = e / C::TN;
-      if constexpr (C::P::NOP == 1) {
-        // the weights are bf16 already: the chunk moves as it is
-        *reinterpret_cast<uint4*>(sm.b_hi(buf) + op_offset(n, c * 4)) =
-            *reinterpret_cast<const uint4*>(rb + n * C::RBC + c * 4);
-      } else {
-        const float4 q = *reinterpret_cast<const float4*>(rb + n * C::RBC +
-                                                          c * 4);
-        const float v[4] = {q.x, q.y, q.z, q.w};
-        store_split4(sm.b_hi(buf), sm.b_lo(buf), op_offset(n, c * 4), v);
-      }
+      const float4 q = *reinterpret_cast<const float4*>(rb + n * C::RBC +
+                                                        c * 4);
+      const float v[4] = {q.x, q.y, q.z, q.w};
+      store_split4(sm.b_hi(buf), sm.b_lo(buf), op_offset(n, c * 4), v);
     }
   }
 };
+
+// Slot room of a run of L elements copied in whole 16-byte chunks: it
+// starts at most 7 elements before its first and ends at most 7 after its
+// last (span_elems and the header comment).
+__host__ __device__ __forceinline__ int run_cap(int len) {
+  return (len + 14) & ~7;
+}
+
+// Offset in x's channel plane (may be negative: padding) of the tap (0, 0)
+// of output pixel r of an image.
+__device__ __forceinline__ int tap_base(int r, int wo, int win, int pad) {
+  const int oy = r / wo;
+  return (oy - pad) * win + (r - oy * wo) - pad;
+}
+
+// conv2x2 operands, bfloat16, from channel spans (the header's "bfloat16
+// instance").  The tile's TM pixels are consecutive in (b, oy, ox), so in
+// each image they touch, the in-image taps of one channel lie in one run
+// [lo, hi) of the channel plane: lo = max(0, tap_base(first pixel)), hi =
+// min(hw, tap_base(last pixel) + win + 2).  Run r of the tile (image b0 +
+// r) is copied for every channel of a stage, widened to 16-byte chunks,
+// into region c of the slot at R_r = run_cap(run 0) + (r - 1)
+// run_cap(hw) (runs between the first and the last cover whole planes), by
+// one bulk copy on the slot's mbarrier.  The transform reads each tap with
+// a 2-byte shared load.
+template <class C>
+struct SpanLoader {
+  static constexpr int CPS = C::CPS;                 // channels a stage
+  static constexpr int TPP = THREADS / C::TM;        // threads per pixel
+  static constexpr int CPT = CPS / TPP;              // channels a thread
+  const SpanSmem<C>& sm;
+  const uint16_t* __restrict__ x;
+  const uint16_t* __restrict__ w;
+  int flags, cin, hw, win, n_out, n0, pt, row, c0;
+  // the tile's runs: first image, count, run 0's [lo0, lo0 + len0), the
+  // last run's end
+  int b0, nr, lo0, len0, hi_last;
+  // this thread's pixel: the masks of its taps' bf16 lanes (taps (0,0),
+  // (0,1); (1,0), (1,1): all ones inside the image), the offset of its tap
+  // (0, 0) in a channel region less the region's chunk shift, and the
+  // plane offset q of its run's start at channel 0 (the shift of channel ci
+  // is (q + ci hw) % 8)
+  uint32_t m01, m23;
+  int d, q;
+
+  // Warp c of the producers copies channel c of the stage, lane r (+ 32 k)
+  // its run r.  Lane 0 announces the warp's bytes before any of them is
+  // copied: the phase cannot complete early.
+  __device__ void issue(int kt, int slot) const {
+    static_assert(THREADS / 32 == CPS, "a producer warp a channel");
+    uint64_t* bar = sm.full + slot;
+    const int c = pt >> 5, ci = kt * CPS + c;
+    int bytes = 0;
+    if (ci < cin)
+      for (int r = pt & 31; r < nr; r += 32) {
+        const int p = ((b0 + r) * cin + ci) * hw;
+        const int lo = r == 0 ? lo0 : 0, hi = r == nr - 1 ? hi_last : hw;
+        bytes += 2 * (((p + hi + 7) & ~7) - ((p + lo) & ~7));
+      }
+    bytes = __reduce_add_sync(0xffffffffu, bytes);
+    if ((pt & 31) == 0) mbar_arrive_expect(bar, bytes);
+    __syncwarp();
+    uint16_t* ring = sm.ring + (slot * CPS + c) * sm.span;
+    if (ci < cin)
+      for (int r = pt & 31; r < nr; r += 32) {
+        const int p = ((b0 + r) * cin + ci) * hw;
+        const int lo = r == 0 ? lo0 : 0, hi = r == nr - 1 ? hi_last : hw;
+        const int s = (p + lo) & ~7, e = (p + hi + 7) & ~7;
+        const int dst = r == 0 ? 0 : run_cap(len0) + (r - 1) * run_cap(hw);
+        bulk_copy(ring + dst, x + s, 2 * (e - s), bar);
+      }
+  }
+
+  // The weight rows of stage kt (the caller's stage-major copy, each row's
+  // 16-byte chunks already in their swizzled places) straight into operand
+  // buffer buf, by the last thread.  Rows past n_out keep stale values:
+  // their columns are never stored.
+  __device__ void issue_weights(int kt, int buf) const {
+    if (pt != THREADS - 1) return;
+    const int nv = n_out - n0 < C::TN ? n_out - n0 : C::TN;
+    mbar_arrive_expect(sm.wfull + buf, 64 * nv);
+    bulk_copy(sm.b_hi(buf), w + ((long long)kt * n_out + n0) * 32, 64 * nv,
+              sm.wfull + buf);
+  }
+
+  __device__ void transform(int kt, int slot, int buf) const {
+    mbar_wait(sm.full + slot, (kt / STAGES) & 1);
+    // every load of the stage first, then the stores (a store to the
+    // operand tile could alias a later load for all the compiler knows)
+    const uint16_t* ring = sm.ring + slot * CPS * sm.span;
+    const int c_first = c0 * CPT, ci0 = kt * CPS + c_first;
+    const int off[4] = {0, 1, win, win + 1};
+    uint32_t h[CPT][2];          // taps (0,0), (0,1); (1,0), (1,1)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const uint16_t* p =
+          ring + (c_first + j) * sm.span + d + ((q + (ci0 + j) * hw) & 7);
+      // unmasked: a tap outside the image, or of a channel past cin, reads
+      // whatever lies there, at most win + 1 elements before a channel
+      // region (in the operand buffers) or win + 8 past it (in the next
+      // region, or the room the launch leaves past the ring), and is masked
+      // below
+      uint32_t v[4];
+#pragma unroll
+      for (int tap = 0; tap < 4; ++tap) v[tap] = p[off[tap]];
+      h[j][0] = v[0] | v[1] << 16;
+      h[j][1] = v[2] | v[3] << 16;
+    }
+    // the input stage on bf16 pairs, then the taps outside the image (and
+    // the channels past cin) to 0; k = 4c .. 4c + 3 of channel c, two
+    // channels a 16-byte chunk
+#pragma unroll
+    for (int j = 0; j < CPT; j += 2) {
+      uint32_t u[4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int ci = ci0 + j + jj;
+        uint32_t z01 = h[j + jj][0], z23 = h[j + jj][1];
+        if ((flags & IN_AFFINE) && ci < cin) {
+          const uint32_t s2 = __float_as_uint(sm.st[ci]);
+          const uint32_t t2 = __float_as_uint(sm.st[cin + ci]);
+          z01 = add_bf2(mul_bf2(z01, s2), t2);
+          z23 = add_bf2(mul_bf2(z23, s2), t2);
+        }
+        if (flags & IN_RELU) {
+          z01 = relu_bf2(z01);
+          z23 = relu_bf2(z23);
+        }
+        const bool ok = ci < cin;
+        u[2 * jj] = ok ? z01 & m01 : 0u;
+        u[2 * jj + 1] = ok ? z23 & m23 : 0u;
+      }
+      *reinterpret_cast<uint4*>(sm.a_hi(buf) +
+                                op_offset(row, 2 * (c_first + j))) =
+          make_uint4(u[0], u[1], u[2], u[3]);
+    }
+  }
+
+  // The tile's runs, and this thread's pixel m (valid: m < M) of image b,
+  // r in it.
+  __device__ void at(long long m0, long long M, int hwo, int wo, int pad,
+                     bool valid, int b, int r) {
+    const long long m_last = (m0 + C::TM < M ? m0 + C::TM : M) - 1;
+    b0 = (int)(m0 / hwo);
+    const int bl = (int)(m_last / hwo);
+    nr = bl - b0 + 1;
+    const int rf = (int)(m0 - (long long)b0 * hwo);
+    const int rl = (int)(m_last - (long long)bl * hwo);
+    const int bf = tap_base(rf, wo, win, pad);
+    lo0 = bf > 0 ? bf : 0;
+    const int end = tap_base(rl, wo, win, pad) + win + 2;
+    hi_last = end < hw ? end : hw;
+    len0 = (nr == 1 ? hi_last : hw) - lo0;
+
+    Taps taps;
+    taps.at(b, r / wo, r % wo, cin, hw / win, win, pad, valid);
+    const int inside = taps.inside;    // 0 past the last pixel
+    m01 = (inside & 1 ? 0xFFFFu : 0u) | (inside & 2 ? 0xFFFF0000u : 0u);
+    m23 = (inside & 4 ? 0xFFFFu : 0u) | (inside & 8 ? 0xFFFF0000u : 0u);
+    d = q = 0;
+    if (valid) {
+      const int rr = b - b0, lo = rr == 0 ? lo0 : 0;
+      const int dst = rr == 0 ? 0 : run_cap(len0) + (rr - 1) * run_cap(hw);
+      d = dst + tap_base(r, wo, win, pad) - lo;
+      q = b * cin * hw + lo;
+    }
+  }
+};
+
+// Producer side over the span ring: the producers issue each stage's bulk
+// copies STAGES - 1 stages ahead; every producer waits on the slot's
+// mbarrier and transforms it into buffer kt % NBUF, up to NBUF stages
+// ahead of the consumers.  The producers' barrier at the top of a stage
+// means that all of them are done with the slot the new copies overwrite
+// (each read it before its fence).  The weight rows of stage kt + 1 go to
+// their buffer as soon as the consumers have freed it, one stage ahead.
+// The fence that publishes the tiles waits for none of the copies: they
+// run in the async proxy.
+template <class C>
+__device__ __forceinline__ void produce_spans(const SpanLoader<C>& ld,
+                                              int steps) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s)
+    if (s < steps) ld.issue(s, s);
+  ld.issue_weights(0, 0);
+  for (int kt = 0; kt < steps; ++kt) {
+    bar_sync(BAR_PRODUCERS, THREADS);
+    if (kt + STAGES - 1 < steps)
+      ld.issue(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    const int buf = kt % NBUF;
+    ld.transform(kt, kt % STAGES, buf);
+    if (kt + 1 < steps) {
+      const int next = (kt + 1) % NBUF;
+      if (kt + 1 >= NBUF) bar_sync(bar_empty(next), 2 * THREADS);
+      ld.issue_weights(kt + 1, next);
+    }
+    mbar_wait(ld.sm.wfull + buf, (kt / NBUF) & 1);
+    fence_proxy_async();
+    bar_arrive(bar_full(buf, 0), THREADS + 128);
+    bar_arrive(bar_full(buf, 1), THREADS + 128);
+  }
+}
 
 // wgrad operands: rows are the im2col columns (ci, tap) from k0, k the
 // pixels of the chunk, BK a stage.  Producer thread pt copies pixel lane
@@ -1013,9 +1357,10 @@ struct WgradLoader {
 };
 
 // si, ti into shared memory, read by every stage's transform (rounded to
-// bf16 for the bf16 instance's input stage).
+// bf16 for the bf16 instance's input stage; for the span transform, both
+// lanes of a bf16 pair).
 template <class C>
-__device__ __forceinline__ void stage_affine(const Smem<C>& sm,
+__device__ __forceinline__ void stage_affine(const OpSmem<C>& sm,
                                              const float* __restrict__ si,
                                              const float* __restrict__ ti,
                                              int flags, int cin) {
@@ -1026,6 +1371,10 @@ __device__ __forceinline__ void stage_affine(const Smem<C>& sm,
         s = rbf(s);
         t = rbf(t);
       }
+      if constexpr (C::SPANS) {     // both bf16 lanes of a pair, as bits
+        s = __uint_as_float(splat_bf2(s));
+        t = __uint_as_float(splat_bf2(t));
+      }
       sm.st[i] = s;
       sm.st[cin + i] = t;
     }
@@ -1033,8 +1382,10 @@ __device__ __forceinline__ void stage_affine(const Smem<C>& sm,
 }
 
 // out (B, N, Ho, Wo) = conv2x2(in_stage(x), pad) with x (B, Cin, Hin, Win),
-// Ho = Hin + 2 pad - 1; w is the K-major (N, ldw) GEMM weight (OIHW
-// flattened, k = ci*4 + tap; bf16: K zero-padded to whole stages).  out_f,
+// Ho = Hin + 2 pad - 1.  fp32: w is the K-major (N, 4 Cin) GEMM weight
+// (OIHW flattened, k = ci*4 + tap).  bf16: w is stage-major (steps, N, 32)
+// (K zero-padded to whole stages), x is 16-byte aligned and its allocation
+// runs on to the next 16-byte boundary, and span is span_elems.  out_f,
 // when given, also takes the fp32 values (bf16: y2 before rounding).
 template <class C, class O>
 __global__ void __launch_bounds__(2 * THREADS, 1)
@@ -1044,10 +1395,19 @@ conv2x2_kernel(const typename C::T* __restrict__ x,
                const float* __restrict__ bias,
                const typename C::T* __restrict__ mask, O* __restrict__ out,
                float* __restrict__ out_f, int B, int cin, int hin, int win,
-               int n_out, int pad, int epi) {
+               int n_out, int pad, int epi, int span) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Smem<C> sm(smem);
-  stage_affine<C>(sm, si, ti, flags, cin);
+  using S = typename std::conditional<C::SPANS, SpanSmem<C>, Smem<C>>::type;
+  const S sm(smem, span);
+  if constexpr (C::SPANS) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s)
+        mbar_init(sm.full + s, THREADS / 32);
+      for (int b = 0; b < NBUF; ++b) mbar_init(sm.wfull + b, 1);
+      fence_mbar_init();
+    }
+  }
+  stage_affine<C>(sm, si, ti, flags, cin);     // and the block's barrier
   const int ho = hin + 2 * pad - 1, wo = win + 2 * pad - 1;
   const int hwo = ho * wo;
   const long long M = (long long)B * hwo;
@@ -1086,11 +1446,18 @@ conv2x2_kernel(const typename C::T* __restrict__ x,
   } else {
     setmaxnreg_dec<PRODUCER_REGS>();
     const int pt = threadIdx.x - THREADS;
-    const int oy = r / wo, ox = r - oy * wo;
-    ConvLoader<C> ld{sm, x, w, flags, cin, hin * win, win, n_out, n0, pt,
-                     row, pt / C::TM, {}};
-    ld.taps.at(b, oy, ox, cin, hin, win, pad, valid);
-    produce<C>(ld, sm, steps);
+    if constexpr (C::SPANS) {
+      SpanLoader<C> ld{sm, x, w, flags, cin, hin * win, win, n_out, n0, pt,
+                       row, pt / C::TM};
+      ld.at(m0, M, hwo, wo, pad, valid, b, r);
+      produce_spans<C>(ld, steps);
+    } else {
+      const int oy = r / wo, ox = r - oy * wo;
+      ConvLoader<C> ld{sm, x, w, flags, cin, hin * win, win, n_out, n0, pt,
+                       row, pt / C::TM, {}};
+      ld.taps.at(b, oy, ox, cin, hin, win, pad, valid);
+      produce<C>(ld, sm, steps);
+    }
   }
 }
 
@@ -1254,14 +1621,43 @@ TileShape tile_shape(int n_out) {
   }
 }
 
+// Elements of one channel region of a span slot: enough for the runs of
+// any tile of TM pixels (see SpanLoader).  A tile touches at most nimg
+// images; its runs hold at most TM + nimg (win + 1) elements, with pad 0 at
+// most ceil(TM / wo) + nimg more (a row of output pixels steps one element
+// further in x than its width), and never more than nimg whole planes; each
+// run adds at most 14 elements of 16-byte chunking (run_cap).
+int span_elems(int tm, int B, int hin, int win, int pad) {
+  const long long wo = win + 2 * pad - 1, hwo = (hin + 2 * pad - 1) * wo;
+  const long long hw = (long long)hin * win;
+  long long nimg = (tm - 1 + hwo - 1) / hwo + 1;
+  if (nimg > B) nimg = B;
+  long long need = tm + nimg * (win + 1);
+  if (pad == 0) need += (tm + wo - 1) / wo + nimg;
+  if (need > nimg * hw) need = nimg * hw;
+  need = (need + 14 * nimg + 7) / 8 * 8;
+  return need < (1 << 24) ? (int)need : 1 << 24;
+}
+
 template <class C, class O>
 cudaError_t launch_conv(const typename C::T* x, const float* si,
                         const float* ti, int flags, const typename C::T* w,
                         const float* bias, const typename C::T* mask, O* out,
                         float* out_f, int B, int cin, int hin, int win,
                         int n_out, int pad, int epi, cudaStream_t st) {
-  // + si, ti; past ~7k channels the card refuses it (no int overflow)
-  const int smem = C::SMEM + 8 * (cin < (1 << 20) ? cin : 1 << 20);
+  int span = 0;
+  long long main = 0;
+  if constexpr (C::SPANS) {
+    span = span_elems(C::TM, B, hin, win, pad);
+    // + room for the unmasked tap loads past the ring (SpanLoader)
+    main = C::smem(span) + 2LL * (win + 8);
+  } else {
+    main = C::SMEM;
+  }
+  // + si, ti; past the card's 227 KB it refuses the launch
+  const long long want = main + 8LL * cin;
+  if (want > 232448) return cudaErrorInvalidValue;
+  const int smem = (int)want;
   const cudaError_t e = cudaFuncSetAttribute(
       conv2x2_kernel<C, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -1273,7 +1669,7 @@ cudaError_t launch_conv(const typename C::T* x, const float* si,
   const dim3 grid(ceil_div(M, C::TM), ceil_div(n_out, C::TN));
   conv2x2_kernel<C, O><<<grid, 2 * THREADS, smem, st>>>(
       x, si, ti, flags, w, bias, mask, out, out_f, B, cin, hin, win, n_out,
-      pad, epi);
+      pad, epi, span);
   return cudaGetLastError();
 }
 
@@ -1283,7 +1679,7 @@ cudaError_t conv2x2(const typename P::T* x, const float* si, const float* ti,
                     const typename P::T* mask, O* out, float* out_f, int B,
                     int cin, int hin, int win, int n_out, int pad, int epi,
                     cudaStream_t st) {
-  using Tl = Tiles<P>;
+  using Tl = ConvTiles<P>;
 #define MMLF_CONV(CFG)                                                      \
   return launch_conv<typename Tl::CFG, O>(x, si, ti, flags, w, bias, mask, \
                                           out, out_f, B, cin, hin, win,     \
@@ -1376,6 +1772,9 @@ cudaError_t sum_images(const float* part, int B, int C, float* out,
   return cudaGetLastError();
 }
 
+// The bf16 conv's bulk copies read 16-byte chunks.
+bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
+
 bool bad_shape(int B, int cin, int H, int W, int cout) {
   return B < 1 || B > 65535 || cin < 1 || cout < 1 || H < 1 || W < 1 ||
          (long long)B * (cin > cout ? cin : cout) * (H + 1) * (W + 1) >=
@@ -1460,10 +1859,14 @@ int mmlf_conv_block_fwd(const float* x, const float* si, const float* ti,
 }
 
 // Forward, bfloat16 canvases (bf16 as 16-bit words).  x (B, Cin, H, W)
-// bf16; si, ti, b1, b2 fp32; w1 (Cout, 4 Cin8) and w2 (Cout, 4 Cout8) bf16
-// GEMM weights with K zero-padded to whole stages (C8 = C rounded up to 8).
-// Writes y1 (bf16 scratch), y2 (bf16), y2f (B, Cout, H, W, fp32 scratch),
-// part, ps and pss as the fp32 forward.
+// bf16; si, ti, b1, b2 fp32; w1 (Cin8 / 8, Cout, 32) and w2 (Cout8 / 8,
+// Cout, 32) bf16 GEMM weights, stage-major: K zero-padded to whole stages
+// (C8 = C rounded up to 8), then the 32 k of each stage for every output
+// channel in turn.  x, y1 and the weights are 16-byte aligned, and the
+// allocations of x and y1 run on to the next 16-byte boundary (the bulk
+// copies read whole 16-byte chunks).  Writes y1 (bf16 scratch), y2 (bf16),
+// y2f (B, Cout, H, W, fp32 scratch), part, ps and pss as the fp32
+// forward.
 int mmlf_conv_block_fwd_bf16(const uint16_t* x, const float* si,
                              const float* ti, const uint16_t* w1,
                              const float* b1, const uint16_t* w2,
@@ -1473,6 +1876,8 @@ int mmlf_conv_block_fwd_bf16(const uint16_t* x, const float* si,
                              int relu_in, int affine_in, int device,
                              void* stream) {
   if (bad_shape(B, cin, H, W, cout)) return (int)cudaErrorInvalidValue;
+  if (misaligned(x) || misaligned(y1) || misaligned(w1) || misaligned(w2))
+    return (int)cudaErrorMisalignedAddress;
   MMLF_TRY(cudaSetDevice(device));
   const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
   MMLF_TRY(block_fwd<Bf16>(x, si, ti, w1, b1, w2, b2, y1, y2, y2f, part, ps,
@@ -1545,14 +1950,16 @@ int mmlf_conv_block_bwd(const float* x, const float* si, const float* ti,
   return (int)cudaSuccess;
 }
 
-// Backward, bfloat16 canvases.  x, y2, dy2 bf16; w1 (Cout, 4 Cin8), w1dg
-// (Cin, 4 Cout8), w2dg (Cout, 4 Cout8) bf16 GEMM weights, K zero-padded as
-// in the forward; si, ti, b1, dps, dpss fp32.  Scratch: y1 (bf16, B, Cout,
-// H+1, W+1), g2 (bf16, B, Cout, H, W), dy1 (fp32) and dy1h (bf16) (B, Cout,
-// H+1, W+1), dz (fp32, B, Cin, H, W), wpart
+// Backward, bfloat16 canvases.  x, y2, dy2 bf16; w1 (Cin8 / 8, Cout, 32),
+// w1dg (Cout8 / 8, Cin, 32), w2dg (Cout8 / 8, Cout, 32) bf16 GEMM weights,
+// stage-major as in the forward; si, ti, b1, dps, dpss fp32.  Scratch: y1
+// (bf16, B, Cout, H+1, W+1), g2 (bf16, B, Cout, H, W), dy1 (fp32) and dy1h
+// (bf16) (B, Cout, H+1, W+1), dz (fp32, B, Cin, H, W), wpart
 // (mmlf_conv_block_wgrad_scratch_bf16 floats), bpart (2 B max(Cin, Cout)).
-// Writes dx (bf16, B, Cin, H, W) and the fp32 dw1, db1, dw2, db2, dsi, dti
-// as the fp32 backward.
+// x, y1, g2, dy1h and the weights are 16-byte aligned, and the allocations
+// of x, y1, g2 and dy1h run on to the next 16-byte boundary.  Writes dx
+// (bf16, B, Cin, H, W) and the fp32 dw1, db1, dw2, db2, dsi, dti as the
+// fp32 backward.
 int mmlf_conv_block_bwd_bf16(const uint16_t* x, const float* si,
                              const float* ti, const uint16_t* w1,
                              const float* b1, const uint16_t* w1dg,
@@ -1566,6 +1973,10 @@ int mmlf_conv_block_bwd_bf16(const uint16_t* x, const float* si,
                              int W, int cout, int relu_in, int affine_in,
                              int device, void* stream) {
   if (bad_shape(B, cin, H, W, cout)) return (int)cudaErrorInvalidValue;
+  if (misaligned(x) || misaligned(y1) || misaligned(g2) ||
+      misaligned(dy1h) || misaligned(w1) || misaligned(w1dg) ||
+      misaligned(w2dg))
+    return (int)cudaErrorMisalignedAddress;
   MMLF_TRY(cudaSetDevice(device));
   const cudaStream_t st = (cudaStream_t)stream;
   const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);

@@ -38,6 +38,7 @@ trunk calls.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.nn import functional as F
@@ -149,12 +150,20 @@ def _dgrad_weight(w):
 
 def _gemm_weight_bf16(w):
     """The bf16 instance's GEMM weight: ``_gemm_weight`` rounded to bf16,
-    K zero-padded to whole stages of 32 (Cin up to a multiple of 8)."""
+    K zero-padded to whole stages of 32 (Cin up to a multiple of 8), and
+    stage-major ``(steps, Cout, 32)``, so that a stage's rows of a block's
+    output channels are one contiguous copy.  Each row's four 16-byte
+    chunks sit where the kernel's swizzled operand tile wants them: chunk
+    c of row n at c ^ ((n >> 1) & 3)."""
     cout, cin = w.shape[:2]
-    out = torch.zeros((cout, 4 * (-(-cin // 8) * 8)), dtype=torch.bfloat16,
+    steps = -(-cin // 8)
+    out = torch.zeros((cout, 32 * steps), dtype=torch.bfloat16,
                       device=w.device)
     out[:, :4 * cin] = w.reshape(cout, -1)
-    return out
+    out = out.view(cout, steps, 4, 8).transpose(0, 1)
+    n = torch.arange(cout, device=w.device)[:, None]
+    place = torch.arange(4, device=w.device)[None] ^ ((n >> 1) & 3)
+    return out[:, n, place].reshape(steps, cout, 32)
 
 
 def _ptrs(*tensors):
@@ -225,10 +234,26 @@ fused_double_conv_fwd.launches = 0
 fused_double_conv_fwd.launches_bf16 = 0
 
 
+def _canvas(shape, device):
+    """An empty bf16 canvas at a 16-byte aligned address whose allocation
+    runs on to the next 16-byte boundary past its last element."""
+    n = math.prod(shape)
+    flat = torch.empty(-(-n // 8) * 8, dtype=torch.bfloat16, device=device)
+    return flat[:n].view(shape)
+
+
 def _aligned(x):
-    """``x`` at a 4-byte aligned address: the bf16 kernels copy the aligned
-    words that hold its elements and pick halves by index parity."""
-    return x if x.data_ptr() % 4 == 0 else x.clone()
+    """``x`` (contiguous bf16) as the bf16 conv kernels read it: at a
+    16-byte aligned address, in an allocation that runs on to the next
+    16-byte boundary past its last element.  Their producers copy whole
+    16-byte chunks of x with bulk copies, which take 16-byte aligned
+    addresses and sizes only; a copy is made when x is not so placed."""
+    room = x.untyped_storage().nbytes() - x.storage_offset() * 2
+    if x.data_ptr() % 16 == 0 and room >= -(-x.numel() // 8) * 16:
+        return x
+    out = _canvas(x.shape, x.device)
+    out.copy_(x)
+    return out
 
 
 def _fwd_bf16(x, si, ti, w1, b1, w2, b2, relu_in, affine_in, new):
@@ -237,7 +262,7 @@ def _fwd_bf16(x, si, ti, w1, b1, w2, b2, relu_in, affine_in, new):
     b, cin, h, w = x.shape
     cout = w1.shape[0]
     bf = dict(dtype=torch.bfloat16, device=x.device)
-    y1 = torch.empty((b, cout, h + 1, w + 1), **bf)
+    y1 = _canvas((b, cout, h + 1, w + 1), x.device)
     y2 = torch.empty((b, cout, h, w), **bf)
     y2f = torch.empty((b, cout, h, w), **new)
     part = torch.empty(2 * b * cout, **new)
@@ -309,11 +334,10 @@ def _bwd_bf16(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, relu_in, affine_in,
     x = _aligned(x)
     b, cin, h, w = x.shape
     cout = w1.shape[0]
-    bf = dict(dtype=torch.bfloat16, device=x.device)
-    y1 = torch.empty((b, cout, h + 1, w + 1), **bf)
-    g2 = torch.empty((b, cout, h, w), **bf)
+    y1 = _canvas((b, cout, h + 1, w + 1), x.device)
+    g2 = _canvas((b, cout, h, w), x.device)
     dy1 = torch.empty((b, cout, h + 1, w + 1), **new)
-    dy1h = torch.empty((b, cout, h + 1, w + 1), **bf)
+    dy1h = _canvas((b, cout, h + 1, w + 1), x.device)
     dz = torch.empty((b, cin, h, w), **new)
     wpart = torch.empty(wgrad_scratch(b, cin, h, w, cout, bf16=True), **new)
     bpart = torch.empty(2 * b * max(cin, cout), **new)

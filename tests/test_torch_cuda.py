@@ -510,15 +510,24 @@ def _assert_bf16_accurate(got, plain, ref, name):
     assert s_k <= max(s_p, 1e-5), (name, s_k, s_p)
 
 
-@pytest.mark.parametrize('size', [(64, 96, 96), (3, 13, 17)],
-                         ids=['recipe', 'ragged'])
+# (B, H, W[, x's element offset]): the recipe; a ragged shape; one image,
+# so that the channel spans of the conv GEMMs meet both ends of the
+# allocation; and x as a view 6 bytes into its buffer (not 16-byte
+# aligned, as the spans' bulk copies need: the wrapper copies it)
+@pytest.mark.parametrize('size', [(64, 96, 96), (3, 13, 17), (1, 96, 96),
+                                  (3, 13, 17, 3)],
+                         ids=['recipe', 'ragged', 'single', 'offset'])
 @pytest.mark.parametrize('cin,cout,relu_in,affine_in', K3_BF16_BLOCKS)
 def test_conv_block_bf16_kernels_match_plain(cuda, size, cin, cout, relu_in,
                                              affine_in):
-    b, h, w = size
+    b, h, w = size[:3]
     x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = _k3_inputs(
         cuda, b, h, w, cin, cout, seed=cin + cout + h)
     x, dy2 = x.bfloat16(), dy2.bfloat16()
+    if len(size) > 3:
+        buf = torch.empty(x.numel() + size[3], dtype=x.dtype, device=cuda)
+        x = buf[size[3]:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 != 0
     d = [a.double() for a in (si, ti, w1, b1, w2, b2, dps, dpss)]
     counts = (C.fused_double_conv_fwd.launches_bf16,
               C.fused_double_conv_bwd.launches_bf16,

@@ -63,8 +63,9 @@ def test_sources_have_no_forbidden_imports():
                 assert not _FORBIDDEN.search(text), os.path.join(root, f)
                 scanned += 1
     assert scanned >= 42
-    with open(os.path.join(REPO, 'chip_smoke.py')) as fh:
-        assert not _FORBIDDEN.search(fh.read()), 'chip_smoke.py'
+    for script in ('chip_smoke.py', 'k3_variants.py'):
+        with open(os.path.join(REPO, script)) as fh:
+            assert not _FORBIDDEN.search(fh.read()), script
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
