@@ -8,14 +8,16 @@
                                    # full-width checkpoint, main and serve
     python3 chip_smoke.py bf16     # card, build, data and the bf16 phases
                                    # (7b-7e, 10b)
+    python3 chip_smoke.py bf16_trunk  # card, build, data and
+                                   # train_bf16_trunk (7d) only
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. card    — the card's name and power limit (nvidia-smi);
 2. build   — every CUDA kernel of mmlf_tpu_torch/csrc, one nvcc each,
              started together, with each kernel's ptxas report (and the
-             registers and spill bytes of each bf16 conv2x2_kernel
-             instance);
+             registers and spill bytes of each bf16 conv2x2_kernel and
+             wgrad_kernel instance);
 3. data    — 4 synthetic 512² train scenes (seeds 0-3) and one val scene
              (seed 7), one process each;
 4. train   — the README UPR recipe through the train CLI at full width
@@ -58,7 +60,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              version's error (fp32 convs, TF32 off, on bf16-rounded
              operands; ``k3_bf16_check``); times, the bound at the dense
              bf16 tensor-core peak and cuDNN's bf16 ConvBlock as context,
-             and the 280→280 profile and backward split as in K3;
+             and the 280→280 profile and backward split as in K3; then
+             the backward of 27→70, 70→70 and 280→280 at two ragged
+             shapes (stages that cross images, odd image sizes, a last
+             stage past the end), every output held the same way;
 8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
@@ -197,6 +202,8 @@ K3_PREC_FACTOR = 4.0
 K3_BLOCKS = [((27, 70, False, False), 4), ((70, 70, True, True), 8),
              ((280, 280, True, True), 7), ((280, 2, True, True), 1),
              ((280, 108, True, True), 0)]
+# ragged (B, H, W) of K3's bf16 backward check (k3_bf16_ragged)
+K3_RAGGED = [(3, 13, 17), (3, 12, 14)]
 
 
 def log(*args):
@@ -744,26 +751,41 @@ def k3_precision(C, b, h, w, cin, cout, seed) -> dict:
     return res
 
 
-def k3_breakdown(C, fa, ba, tag: str = '') -> None:
-    """Device time by CUDA kernel of one K3 forward and one backward
-    (torch.profiler, the mean of 3 calls), to show where a block's time
-    goes, and the backward's split into its conv GEMMs (conv2x2_kernel),
-    its weight gradients (wgrad_kernel) and the rest."""
+def bwd_split(rows) -> tuple:
+    """``(conv GEMMs, weight gradients, rest)`` device ms of a K3 backward
+    from its profiler rows ``(kernel name, ms, count)``: conv2x2_kernel,
+    wgrad_kernel and every other kernel."""
+    conv = sum(ms for key, ms, _ in rows if 'conv2x2_kernel' in key)
+    wgrad = sum(ms for key, ms, _ in rows if 'wgrad_kernel' in key)
+    return conv, wgrad, sum(ms for _, ms, _ in rows) - conv - wgrad
+
+
+def profile_rows(fn, args, calls: int = 3) -> list:
+    """Device time by CUDA kernel of ``fn(*args)`` (torch.profiler, the
+    mean of ``calls`` calls after one warm-up): ``[(name, ms, count)]``,
+    largest first; empty when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    calls = 3
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sorted(((e.key, e.device_time_total / 1e3 / calls,
+                    e.count // calls)
+                   for e in prof.key_averages()
+                   if e.device_time_total > 0), key=lambda r: -r[1])
+
+
+def k3_breakdown(C, fa, ba, tag: str = '') -> None:
+    """Device time by CUDA kernel of one K3 forward and one backward
+    (``profile_rows``), to show where a block's time goes, and the
+    backward's split into its conv GEMMs (conv2x2_kernel), its weight
+    gradients (wgrad_kernel) and the rest."""
     for name, fn, args in (('fwd', C.fused_double_conv_fwd, fa),
                            ('bwd', C.fused_double_conv_bwd, ba)):
-        fn(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn(*args)
-            torch.cuda.synchronize()
-        rows = sorted(((e.key, e.device_time_total / 1e3 / calls,
-                        e.count // calls)
-                       for e in prof.key_averages()
-                       if e.device_time_total > 0), key=lambda r: -r[1])
+        rows = profile_rows(fn, args)
         if not rows:
             log(f'k3 breakdown{tag} {name}: the profiler saw no device time')
             continue
@@ -771,34 +793,35 @@ def k3_breakdown(C, fa, ba, tag: str = '') -> None:
             f'call): ' + '; '.join(f'{k[:60]} x{n} {ms:.3f}'
                                    for k, ms, n in rows[:8]))
         if name == 'bwd':
-            split = {'conv2x2_kernel': 0.0, 'wgrad_kernel': 0.0}
-            rest = 0.0
-            for key, ms, _ in rows:
-                part = next((k for k in split if k in key), None)
-                if part is None:
-                    rest += ms
-                else:
-                    split[part] += ms
+            conv, wgrad, rest = bwd_split(rows)
             log(f'k3 breakdown{tag} bwd split (280->280, device ms a call): '
-                f'conv GEMMs (conv2x2_kernel) '
-                f'{split["conv2x2_kernel"]:.3f}, weight gradients '
-                f'(wgrad_kernel) {split["wgrad_kernel"]:.3f}, other '
-                f'{rest:.3f}')
+                f'conv GEMMs (conv2x2_kernel) {conv:.3f}, weight gradients '
+                f'(wgrad_kernel) {wgrad:.3f}, other {rest:.3f}')
 
 
-def conv2x2_instances(report: str) -> str:
+def bf16_instances(report: str) -> str:
     """Registers and spill-store bytes of each bf16 conv2x2_kernel instance
-    (tile rows x columns, output type) in conv_block's ptxas -v report."""
+    (tile rows x columns, output type) and each bf16 wgrad_kernel
+    instance (rows x columns) in conv_block's ptxas -v report."""
     rows = []
     for entry in report.split('Compiling entry function')[1:]:
-        name = re.search(r"conv2x2_kernelINS_\d+(Span)?CfgILi(\d+)ELi(\d+)E"
+        conv = re.search(r"conv2x2_kernelINS_\d+(Span)?CfgILi(\d+)ELi(\d+)E"
                          r"(NS_4Bf16E)?EE(\w)", entry)
+        wgrad = re.search(r"wgrad_kernelINS_\d+WgradSpanCfgILi(\d+)E", entry)
         regs = re.search(r'Used (\d+) registers', entry)
         spill = re.search(r'(\d+) bytes spill stores', entry)
-        if name and (name.group(1) or name.group(4)) and regs and spill:
-            out = {'f': 'fp32 out', 't': 'bf16 out'}.get(name.group(5), '?')
-            rows.append(f'{128 * int(name.group(2))}x{name.group(3)} {out}: '
-                        f'{regs.group(1)} regs / {spill.group(1)} B spilled')
+        if not (regs and spill):
+            continue
+        if conv and (conv.group(1) or conv.group(4)):
+            out = {'f': 'fp32 out', 't': 'bf16 out'}.get(conv.group(5), '?')
+            what = (f'conv2x2 {128 * int(conv.group(2))}x{conv.group(3)} '
+                    f'{out}')
+        elif wgrad:
+            what = f'wgrad 128x{wgrad.group(1)}'
+        else:
+            continue
+        rows.append(f'{what}: {regs.group(1)} regs / {spill.group(1)} B '
+                    f'spilled')
     return ', '.join(rows)
 
 
@@ -834,6 +857,36 @@ def k3_bf16_check(got, plain, ref, what: str) -> float:
             f'{what}: error vs float64 {e_k:.3e} (fp32 plain {e_p:.3e}), '
             f'share beyond one ulp {s_k:.2e} (fp32 plain {s_p:.2e})')
     return e_k
+
+
+def k3_bf16_ragged(C) -> None:
+    """K3's bf16 instance at ragged shapes, each output held by
+    ``k3_bf16_check``: (3, 13, 17) and (3, 12, 14) give each weight
+    gradient a stage that crosses an image, an odd pixel count an image
+    (dW2's 13 x 17, dW1's 13 x 15) and a last stage past the end (M % 32
+    != 0)."""
+    import torch
+    for b, h, w in K3_RAGGED:
+        for (cin, cout, relu_in, affine_in), _ in K3_BLOCKS[:3]:
+            x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = k3_inputs(
+                b, h, w, cin, cout, seed=cin + cout + h)
+            x, dy2 = x.bfloat16(), dy2.bfloat16()
+            dbl = [a.double() for a in (si, ti, w1, b1, w2, b2, dps, dpss)]
+            y2 = C.plain_double_conv_fwd(x, *dbl[:6], relu_in, affine_in)[0]
+            ba = (x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, relu_in,
+                  affine_in)
+            got, plain = C.fused_double_conv_bwd(*ba), \
+                C.plain_double_conv_bwd(*ba)
+            ref = C.plain_double_conv_bwd(x, *dbl[:5], y2, dy2, *dbl[6:],
+                                          relu_in, affine_in)
+            torch.cuda.synchronize()
+            errs = [k3_bf16_check(g, p, r, f'K3 bf16 bwd {cin}->{cout} '
+                                  f'B={b} {h}x{w} {name}')
+                    for g, p, r, name in zip(got, plain, ref, (
+                        'dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2', 'db2'))]
+            log(f'K3 bf16 bwd {cin}->{cout} B={b} {h}x{w} (ragged): max abs '
+                f'err vs float64 dx {errs[0]:.2e}, dw1 {errs[3]:.2e}, db1 '
+                f'{errs[4]:.2e}, dw2 {errs[5]:.2e}, db2 {errs[6]:.2e}')
 
 
 def phase_conv_block(M, bf16: bool = False) -> dict:
@@ -956,6 +1009,8 @@ def phase_conv_block(M, bf16: bool = False) -> dict:
             by[kind][bound_by] += n * bound
         del x, si, ti, w1, b1, w2, b2, dy2, dps, dpss, fa, ba, y2, want
         torch.cuda.empty_cache()
+    if bf16:
+        k3_bf16_ragged(C)
     for kind in ('fwd', 'bwd'):
         o = out[kind]
         o['bound_by'] = max(by[kind], key=by[kind].get)
@@ -1504,7 +1559,8 @@ def main() -> int:
     log(f'card: {card}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, {torch.cuda.device_count()} device(s)')
     mode = sys.argv[1:]
-    if mode not in ([], ['k3'], ['k2'], ['serve'], ['bf16']):
+    if mode not in ([], ['k3'], ['k2'], ['serve'], ['bf16'],
+                    ['bf16_trunk']):
         print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
         return 2
 
@@ -1522,8 +1578,8 @@ def main() -> int:
             f'{max(spills)} bytes')
     log('build: posterior by bins per thread: '
         + k2_instances(build.ptxas_report('posterior')))
-    log('build: conv_block bf16 conv2x2_kernel instances: '
-        + conv2x2_instances(build.ptxas_report('conv_block')))
+    log('build: conv_block bf16 conv2x2_kernel and wgrad_kernel instances: '
+        + bf16_instances(build.ptxas_report('conv_block')))
     if mode == ['k3']:
         phase_conv_block(M)
         phase_conv_block(M, bf16=True)
@@ -1545,6 +1601,10 @@ def main() -> int:
     if mode == ['bf16']:
         bf16 = phase_bf16(M, train, val, work, card)
         phase_bf16_eval(M, bf16['run'], val, card)
+        return 0
+    if mode == ['bf16_trunk']:
+        phase_train(M, train, val, os.path.join(work, 'run_bf16_trunk'),
+                    TRUNK_STEPS, trunk=True, bf16=True)
         return 0
     train_run = phase_train(M, train, val, run, TRAIN_STEPS)
     gather = phase_window_gather(W, train_run['pipeline'], train_run['size'])

@@ -137,15 +137,38 @@
 //     that floor is the consumers' (a wait for each stage's two products,
 //     then their flush into the fp32 sums) and the epilogue's, ~3x the
 //     tensor-core time of a stage.
-//   * The weight gradients keep the cp.async ring (WgradLoader): a bf16
-//     value is 2 bytes, which cp.async cannot copy, and a pair is 4-byte
-//     aligned only at an even element index, so their producers copy the
-//     aligned 4-byte word that holds each tap and gradient value into a
-//     ring of words and pick the halves by parity in the transform.  That
-//     ring leaves room for 128-row tiles only.  (They issue 34 copies a
-//     stage and take their addresses and index parities once a stage: per
-//     copy, they spill up to 324 bytes and the 280 -> 280 backward takes
-//     twice as long.)
+//   * The weight gradients (dW2 = sum g2 (x) taps(y1), dW1 = sum dy1 (x)
+//     taps(z)) are fed by spans too (WgradSpanLoader).  There A's rows are
+//     the im2col columns (ci, tap) of 32 x channels, B's the gradient's TN
+//     output channels, and k the 32 pixels of a stage, consecutive in (b,
+//     oy, ox).  So in each image that a group of WGRAD_GROUP stages
+//     touches, the taps of one x channel lie in one run of its plane (the
+//     rule above, for the group's pixels), and the group's values of one
+//     gradient channel in one run of that channel's plane.  Each run is
+//     copied, widened to 16-byte chunks, with one cp.async.bulk on the
+//     mbarrier of its half of a two-group ring, a group ahead; a half
+//     holds 32 x regions of span_a elements and TN gradient regions of
+//     span_b, computed at launch for the shape (wgrad_span_a,
+//     wgrad_span_b: groups start at known multiples, so a group touches a
+//     known number of images).  Copies go by groups because each costs the
+//     card a fixed time: a copy a channel and stage (176 a stage at 280 ->
+//     280) took longer than the word ring, and 4 stages a group cut that
+//     to a quarter; the ring's 227 KB leave no room for larger groups at
+//     280 -> 280.  When a group is issued, the producers also write its
+//     pixel table: each pixel's offsets in an x region and a gradient
+//     region, its in-image taps and its part of the chunk shifts.  In the
+//     transform a warp instruction writes two rows of a tile, a lane one
+//     4-byte word (two pixels): its loads read 32 consecutive elements of
+//     one or two regions and its stores 128 bytes, so neither conflicts in
+//     the banks.  The lanes apply the input stage on bf16 pairs and the
+//     masks (taps outside the image, pixels past the chunk's end).  The
+//     consumers free an operand buffer on an mbarrier, so the producer
+//     warps do not wait for each other every stage.  The operands, the
+//     stages, the chunks and the order of every sum are the word ring's
+//     exactly, and so are the weight gradients.  What holds it from the
+//     bound (measured on the card with k3_variants.py, 280 -> 280): the
+//     transform (the wgrads take ~0.5x as long without it) and the copies
+//     (~0.7x without them).
 // Bound on an H100 SXM: operations at the dense bf16 tensor-core peak, 989
 // TFLOP/s: 0.76 ms forward and 1.9 ms backward at 280 -> 280, B 64, 96x96.
 
@@ -163,6 +186,7 @@ constexpr int NBUF = 3;        // operand buffers between producers and consumer
 // registers a thread, moved by setmaxnreg: 2 x 128 x (176 + 80) = 65536
 constexpr int CONSUMER_REGS = 176, PRODUCER_REGS = 80;
 constexpr int WGRAD_TARGET_BLOCKS = 2 * 132;
+constexpr int WGRAD_GROUP = 4;  // stages of a bf16 wgrad span copy group
 constexpr long long WGRAD_MAX_CHUNK = 4096;   // pixels per wgrad partial
 
 // The two instances: the element of the canvases and operands, the GEMM
@@ -179,7 +203,6 @@ struct Tf32x3 {
 
 struct Bf16 {
   using T = uint16_t;
-  using R = uint32_t;            // the wgrad ring holds aligned bf16 pairs
   static constexpr int BK = 32;
   static constexpr int NOP = 1;
 };
@@ -227,20 +250,6 @@ __device__ __forceinline__ float in_stage(float v, float s, float t,
   if (flags & IN_AFFINE) v = fmaf(v, s, t);
   if (flags & IN_RELU) v = fmaxf(v, 0.f);
   return v;
-}
-
-// The forward's input stage in the instance's arithmetic: bf16 rounds the
-// product and the sum (s, t are bf16 values there).
-template <class P>
-__device__ __forceinline__ float in_stage_fwd(float v, float s, float t,
-                                              int flags) {
-  if constexpr (P::NOP == 1) {
-    if (flags & IN_AFFINE) v = rbf(rbf(v * s) + t);
-    if (flags & IN_RELU) v = fmaxf(v, 0.f);
-    return v;
-  } else {
-    return in_stage(v, s, t, flags);
-  }
 }
 
 // (hi, lo) = (tf32(a), tf32(a - hi)), round to nearest, ties away.
@@ -295,6 +304,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 // after mbarrier.init, before any other thread uses the barriers
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this thread's arrival
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
 }
 
 // this thread's arrival, announcing `bytes` more bytes of copies to come
@@ -607,59 +622,7 @@ struct Taps {
       cp_async4(dst + t * step, v ? x + o + off[t] : x, v);
     }
   }
-
-  // bf16: a 2-byte tap is not a cp.async size, and a tap pair (ix0,
-  // ix0 + 1) is 4-byte aligned only when its first element index is even.
-  // So each tap is copied as the aligned 4-byte word that holds it (the
-  // x base pointer is 4-byte aligned): per row, the words of taps 0 and 1
-  // (one word twice when the pair is aligned), to dst[0..3 step]; the
-  // transform picks the halves by parity (pair_taps).  A word is copied
-  // only when its tap lies inside, and then it lies in the allocation.
-  __device__ void copy(const uint16_t* __restrict__ x, int ci, int cin,
-                       int hw, int win, uint32_t* dst, int step) const {
-    const bool ok = ci < cin;
-    const int o = base + ci * hw;
-    const int off[4] = {0, 1, win, win + 1};
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const bool v = ok && (inside >> t & 1);
-      cp_async4(dst + t * step, word_of(v ? x + o + off[t] : x), v);
-    }
-  }
-
-  __device__ static const uint32_t* word_of(const uint16_t* p) {
-    return reinterpret_cast<const uint32_t*>(
-        reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)3);
-  }
 };
-
-// The half of word w that holds the element of index parity `odd`.
-__device__ __forceinline__ uint16_t half_of(uint32_t w, int odd) {
-  return (uint16_t)(odd ? w >> 16 : w & 0xFFFFu);
-}
-
-// The four taps (0,0), (0,1), (1,0), (1,1) from their words w[0..3 step]
-// (Taps::copy, bf16), the tap (0,0) of element index parity `odd`.
-__device__ __forceinline__ void pair_taps(const uint32_t* w, int step,
-                                          int odd, int win, float (&v)[4]) {
-  const int odd1 = (odd + win) & 1;
-  v[0] = to_f(half_of(w[0], odd));
-  v[1] = to_f(half_of(w[step], odd ^ 1));
-  v[2] = to_f(half_of(w[2 * step], odd1));
-  v[3] = to_f(half_of(w[3 * step], odd1 ^ 1));
-}
-
-// One value into the ring: cp.async of the value for fp32, of the aligned
-// word that holds it for bf16.
-__device__ __forceinline__ void copy1(float* dst, const float* src,
-                                      bool valid) {
-  cp_async4(dst, src, valid);
-}
-
-__device__ __forceinline__ void copy1(uint32_t* dst, const uint16_t* src,
-                                      bool valid) {
-  cp_async4(dst, Taps::word_of(src), valid);
-}
 
 // Block tile: TM = 128 MI rows x TN columns, TN a multiple of 8 up to 256.
 // A block is four warpgroups: two consumers (each MI m64 x TN products of
@@ -678,18 +641,22 @@ struct GemmTile {
   static constexpr int OP = P::NOP * (OPA + OPB);
   static constexpr int OA = TM + 4;                // epilogue tile stride
   static constexpr int EPI = 4 * TN * OA;
+  // buffer b is free: the consumers' arrivals on an mbarrier (else the
+  // named barrier bar_empty, which all producers wait on together)
+  static constexpr bool EMPTY_MBAR = false;
   static_assert(TN % 8 == 0 && TN <= 256, "wgmma N");
 };
 
-// A tile fed by the cp.async ring of words (ConvLoader, WgradLoader).
+// A float32 tile fed by the cp.async ring of words (ConvLoader,
+// WgradLoader).
 template <int MI_, int TN_, class P_>
 struct Cfg : GemmTile<MI_, TN_, P_> {
   using G = GemmTile<MI_, TN_, P_>;
   using R = typename P_::R;
   static constexpr bool SPANS = false;
-  // cp.async ring, 4-byte entries a slot: A (BK x TM, row stride TM + 1:
-  // a tap, or the word that holds a bf16 tap); B conv (TN weight rows of
-  // a stage, 80 bytes apart) or wgrad (BK x TN, row stride TN + 1)
+  // cp.async ring, 4-byte entries a slot: A (BK x TM, row stride TM + 1);
+  // B conv (TN weight rows of a stage, 80 bytes apart) or wgrad (BK x TN,
+  // row stride TN + 1)
   static constexpr int RA = G::TM + 1, RB = TN_ + 1, RBC = 20;
   static constexpr int RAW_A = G::BK * RA;
   static constexpr int RAW_B =
@@ -722,19 +689,47 @@ struct SpanCfg : GemmTile<MI_, TN_, Bf16> {
   }
 };
 
+// A bf16 wgrad tile fed by the span ring (WgradSpanLoader): two halves,
+// each a copy group's CA x-channel regions of span_a elements, then its TN
+// gradient-channel regions of span_b (launch parameters, wgrad_span_a and
+// wgrad_span_b).  After the ring: room for the transform's unmasked tap
+// loads past it, then (after the epilogue tile, if that is larger) the
+// two halves' pixel tables and their mbarriers.
+template <int TN_>
+struct WgradSpanCfg : GemmTile<1, TN_, Bf16> {
+  using G = GemmTile<1, TN_, Bf16>;
+  static constexpr bool SPANS = true, EMPTY_MBAR = true;
+  static constexpr int CA = G::TM / 4;             // x channels a tile
+  static constexpr int PIX = WGRAD_GROUP * G::BK;  // pixels a copy group
+  static __host__ __device__ long long slot_elems(int span_a, int span_b) {
+    return (long long)CA * span_a + (long long)TN_ * span_b;
+  }
+  static __host__ __device__ long long area(int span_a, int span_b,
+                                            int win) {
+    const long long main = 4LL * NBUF * G::OP +
+                           4LL * slot_elems(span_a, span_b) +
+                           ((2LL * (win + 8) + 15) & ~15LL);
+    return main > G::EPI ? main : G::EPI;
+  }
+  // + the pixel tables and the mbarriers; si and ti follow
+  static __host__ __device__ long long smem(int span_a, int span_b,
+                                            int win) {
+    return area(span_a, span_b, win) + 2 * 16LL * PIX + 8 * (2 + NBUF);
+  }
+};
+
 // 280 -> 144 + 144, 108 -> 112, 70 -> 72, 27 -> 32, 2 -> 8.  The narrow
 // tiles take 256 rows (MI = 2); the wide ones 128, since the consumers'
-// two accumulator sets leave no registers for two.  The bf16 conv tiles
-// take the span ring; bf16's word ring of 32-deep stages (wgrad) leaves
-// room for 128 rows only.
-template <class P>
-struct Tiles {
-  static constexpr int MIN = P::NOP == 2 ? 2 : 1;
-  using T144 = Cfg<1, 144, P>;
-  using T112 = Cfg<1, 112, P>;
-  using T72 = Cfg<MIN, 72, P>;
-  using T32 = Cfg<MIN, 32, P>;
-  using T8 = Cfg<MIN, 8, P>;
+// two accumulator sets leave no registers for two.  fp32 takes the word
+// ring, the bf16 convs the span ring; the bf16 wgrads, on spans too, keep
+// the 128 rows of the word ring they had (their pixel chunking, and so the
+// order of their sums, depends on the tile).
+struct WordTiles {
+  using T144 = Cfg<1, 144, Tf32x3>;
+  using T112 = Cfg<1, 112, Tf32x3>;
+  using T72 = Cfg<2, 72, Tf32x3>;
+  using T32 = Cfg<2, 32, Tf32x3>;
+  using T8 = Cfg<2, 8, Tf32x3>;
 };
 
 struct SpanTiles {
@@ -745,10 +740,22 @@ struct SpanTiles {
   using T8 = SpanCfg<2, 8>;
 };
 
-// The conv tiles of an instance: the word ring for fp32, spans for bf16.
+struct WgradSpanTiles {
+  using T144 = WgradSpanCfg<144>;
+  using T112 = WgradSpanCfg<112>;
+  using T72 = WgradSpanCfg<72>;
+  using T32 = WgradSpanCfg<32>;
+  using T8 = WgradSpanCfg<8>;
+};
+
+// The conv and wgrad tiles of an instance: the word ring for fp32, spans
+// for bf16.
 template <class P>
 using ConvTiles =
-    typename std::conditional<P::NOP == 1, SpanTiles, Tiles<P>>::type;
+    typename std::conditional<P::NOP == 1, SpanTiles, WordTiles>::type;
+template <class P>
+using WgradTiles =
+    typename std::conditional<P::NOP == 1, WgradSpanTiles, WordTiles>::type;
 
 // Views of the dynamic shared memory common to both rings: NBUF buffers of
 // a stage's operand tiles, the epilogue's output tile over them (and over
@@ -779,7 +786,7 @@ struct Smem : OpSmem<C> {
   R* raw_b;
   unsigned char* mask;
 
-  __device__ explicit Smem(unsigned char* base, int = 0)
+  __device__ explicit Smem(unsigned char* base, int = 0, int = 0, int = 0)
       : OpSmem<C>(base, C::SMEM) {
     raw_a = reinterpret_cast<R*>(this->op + NBUF * C::OP);
     raw_b = raw_a + STAGES * C::RAW_A;
@@ -802,6 +809,30 @@ struct SpanSmem : OpSmem<C> {
     ring = reinterpret_cast<uint16_t*>(this->op + NBUF * C::OP);
     full = reinterpret_cast<uint64_t*>(base + C::area(span_));
     wfull = full + STAGES;
+  }
+};
+
+// ... with the wgrad's span ring: half h holds x region c at ring + h slot
+// + c span_a and gradient region n at ring + h slot + CA span_a + n
+// span_b; pix + h PIX is its pixel table and full[h] completes when its
+// runs arrived; empty[b] completes when the consumers have read operand
+// buffer b.
+template <class C>
+struct WgradSpanSmem : OpSmem<C> {
+  uint16_t* ring;
+  int4* pix;
+  uint64_t* full;
+  uint64_t* empty;
+  int span_a, span_b, slot;
+
+  __device__ WgradSpanSmem(unsigned char* base, int span_a_, int span_b_,
+                           int win)
+      : OpSmem<C>(base, C::smem(span_a_, span_b_, win)), span_a(span_a_),
+        span_b(span_b_), slot((int)C::slot_elems(span_a_, span_b_)) {
+    ring = reinterpret_cast<uint16_t*>(this->op + NBUF * C::OP);
+    pix = reinterpret_cast<int4*>(base + C::area(span_a_, span_b_, win));
+    full = reinterpret_cast<uint64_t*>(pix + 2 * C::PIX);
+    empty = full + 2;
   }
 };
 
@@ -864,9 +895,12 @@ __device__ __forceinline__ void stage_products(const OpSmem<C>& sm, int buf,
 // Consumer side of out[row][col] = sum_k A[k][row] Bm[k][col] over `steps`
 // stages of 16 k: each stage's products in the tensor cores, then added
 // into fp32 registers; the result is left as the (TN, TM) tile
-// sm.out[col * OA + row].  Thread ct = threadIdx.x < THREADS.
+// sm.out[col * OA + row].  Thread ct = threadIdx.x < THREADS.  With
+// C::EMPTY_MBAR, lane 0 of each warp arrives on empty[buf] when the warp
+// has read buffer buf.
 template <class C>
-__device__ __forceinline__ void consume(const OpSmem<C>& sm, int steps) {
+__device__ __forceinline__ void consume(const OpSmem<C>& sm, int steps,
+                                        uint64_t* empty = nullptr) {
   const int ct = threadIdx.x, wg = ct >> 7;
   float acc[C::MI][C::ACC], t[C::MI][C::ACC];
 #pragma unroll
@@ -881,7 +915,13 @@ __device__ __forceinline__ void consume(const OpSmem<C>& sm, int steps) {
     stage_products<C>(sm, buf, wg, t);
     wgmma_commit();
     wgmma_wait_all();
-    if (kt + NBUF < steps) bar_arrive(bar_empty(buf), 2 * THREADS);
+    if (kt + NBUF < steps) {
+      if constexpr (C::EMPTY_MBAR) {
+        if ((ct & 31) == 0) mbar_arrive(empty + buf);
+      } else {
+        bar_arrive(bar_empty(buf), 2 * THREADS);
+      }
+    }
 #pragma unroll
     for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
@@ -948,13 +988,6 @@ __device__ __forceinline__ void store_split4(float* hi, float* lo, int off,
   h.w = s.x; l.w = s.y;
   *reinterpret_cast<float4*>(hi + off) = h;
   *reinterpret_cast<float4*>(lo + off) = l;
-}
-
-// A 16-bit value into its operand tile: element k of row `row` (bf16 pairs
-// share a 32-bit word, k even in the low half).
-__device__ __forceinline__ void put_bf16(float* tile, int row, int k,
-                                         uint16_t v) {
-  reinterpret_cast<uint16_t*>(tile)[2 * op_offset(row, k >> 1) + (k & 1)] = v;
 }
 
 // conv2x2 operands, float32: rows are pixels, k = ci*4 + tap, a stage is
@@ -1238,12 +1271,10 @@ __device__ __forceinline__ void produce_spans(const SpanLoader<C>& ld,
   }
 }
 
-// wgrad operands: rows are the im2col columns (ci, tap) from k0, k the
-// pixels of the chunk, BK a stage.  Producer thread pt copies pixel lane
-// pt % BK of channels pt / BK + NG j and of gradient channels pt / BK +
-// NG i (bf16: the aligned words that hold them); its tap mask for each
-// slot (and, bf16, the parities of its x and g offsets) waits in sm.mask
-// until the transform.
+// wgrad operands, float32: rows are the im2col columns (ci, tap) from k0,
+// k the pixels of the chunk, BK a stage.  Producer thread pt copies pixel
+// lane pt % BK of channels pt / BK + NG j and of gradient channels pt / BK
+// + NG i; its tap mask for each slot waits in sm.mask until the transform.
 template <class C>
 struct WgradLoader {
   using T = typename C::T;
@@ -1251,7 +1282,7 @@ struct WgradLoader {
   static constexpr int NG = THREADS / C::BK;         // lane groups
   static constexpr int APT = C::TM / 4 / NG;         // channels a thread
   static constexpr int GPT = (C::TN + NG - 1) / NG;
-  static_assert(NG % 2 == 0, "one index parity for all of a thread's rows");
+  static_assert(C::P::NOP == 2, "the bf16 wgrad takes WgradSpanLoader");
   const Smem<C>& sm;
   const T* __restrict__ g;
   const T* __restrict__ x;
@@ -1265,6 +1296,9 @@ struct WgradLoader {
     taps.at(b, oy, ox, cin, hin, win, pad, pv);
     const int hwo = ho * wo;
     const long long gbase = (long long)b * n_out * hwo + oy * wo + ox;
+    // bits 4 and 5 (the index parities of the x and g offsets) are not
+    // read; storing them keeps the schedule ptxas gives this loop (without
+    // them the 280 -> 280 backward took 0.8% longer on the card)
     sm.mask[slot * THREADS + pt] = (unsigned char)(
         taps.inside | (taps.base & 1) << 4 | (int)(gbase & 1) << 5);
     R* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
@@ -1280,7 +1314,7 @@ struct WgradLoader {
       const int n = q + NG * i;
       if (n >= C::TN) break;
       const bool ok = pv && n0 + n < n_out;
-      copy1(rb + n, ok ? gp : g, ok);
+      cp_async4(rb + n, ok ? gp : g, ok);
       gp += (long long)NG * hwo;
     }
     // this thread's pixel of the next stage
@@ -1296,13 +1330,7 @@ struct WgradLoader {
   }
 
   __device__ void transform(int, int slot, int buf) const {
-    const int bits = sm.mask[slot * THREADS + pt];
-    const int inside = bits & 15;
-    // bf16: index parities of the thread's x taps (ci = k0 / 4 + q + NG j)
-    // and gradients (n = q + NG i); NG is even, so one for every j or i
-    const int hwo = ho * wo;
-    const int odd_x = (bits >> 4 ^ (k0 / 4 + q) * hin * win) & 1;
-    const int odd_g = (bits >> 5 ^ (n0 + q) * hwo) & 1;
+    const int inside = sm.mask[slot * THREADS + pt];   // bits 0-3 read
     const R* ra = sm.raw_a + slot * C::RAW_A + p * C::RA;
     float* ahi = sm.a_hi(buf);
     float* alo = sm.a_lo(buf);
@@ -1316,25 +1344,16 @@ struct WgradLoader {
         t = sm.st[cin + ci];
       }
       float v[4];
-      if constexpr (C::P::NOP == 1) {
-        pair_taps(ra + c * 4, 1, odd_x, win, v);
-      } else {
 #pragma unroll
-        for (int tap = 0; tap < 4; ++tap) v[tap] = ra[c * 4 + tap];
-      }
+      for (int tap = 0; tap < 4; ++tap) v[tap] = ra[c * 4 + tap];
 #pragma unroll
       for (int tap = 0; tap < 4; ++tap) {
         const bool in = ok && (inside >> tap & 1);
-        const float z =
-            in ? in_stage_fwd<typename C::P>(v[tap], s, t, flags) : 0.f;
-        if constexpr (C::P::NOP == 1) {
-          put_bf16(ahi, c * 4 + tap, p, f2bf(z));
-        } else {
-          const float2 zs = split_tf32(z);
-          const int off = op_offset(c * 4 + tap, p);
-          ahi[off] = zs.x;
-          alo[off] = zs.y;
-        }
+        const float z = in ? in_stage(v[tap], s, t, flags) : 0.f;
+        const float2 zs = split_tf32(z);
+        const int off = op_offset(c * 4 + tap, p);
+        ahi[off] = zs.x;
+        alo[off] = zs.y;
       }
     }
     const R* rb = sm.raw_b + slot * C::RAW_B + p * C::RB;
@@ -1344,17 +1363,277 @@ struct WgradLoader {
     for (int i = 0; i < GPT; ++i) {
       const int n = q + NG * i;
       if (n >= C::TN) break;
-      if constexpr (C::P::NOP == 1) {
-        put_bf16(bhi, n, p, half_of(rb[n], odd_g));
-      } else {
-        const float2 z = split_tf32(rb[n]);
-        const int off = op_offset(n, p);
-        bhi[off] = z.x;
-        blo[off] = z.y;
-      }
+      const float2 z = split_tf32(rb[n]);
+      const int off = op_offset(n, p);
+      bhi[off] = z.x;
+      blo[off] = z.y;
     }
   }
 };
+
+// wgrad operands, bfloat16, from spans (the header's "bfloat16 instance").
+// The copies go by groups of D = WGRAD_GROUP stages (PIX pixels): a
+// group's pixels are consecutive in (b, oy, ox), so in each image they
+// touch, the taps of one x channel lie in one run [lo, hi) of its plane:
+// lo = max(0, tap_base(first pixel)), hi = min(hw, tap_base(last pixel) +
+// win + 2), and the group's values of one gradient channel in one run of
+// that channel's plane.  Run r of a group (image b0 + r) goes to offset 0
+// (r = 0) or run_cap(run 0) + (r - 1) run_cap(plane) of the channel's
+// region (runs between the first and the last cover whole planes); the
+// two halves of the ring hold two groups.  Copy item e = 8 lane + warp of
+// the producers (x channel k0 / 4 + e, or gradient channel n0 + e - CA)
+// is one bulk copy a run, all issued at the first stage of the group
+// before.  (A warp stalls while its lanes issue bulk copies, so the items
+// are spread over the 8 warps; spread over the stages of the group before
+// as well, the last ones landed too late.)  In the transform, a warp
+// instruction writes two rows of a tile, lane (hi16, k) = (lane >> 4,
+// lane & 15) word k (pixels 2 k, 2 k + 1) of the second row if hi16: row
+// pairs (c, dy) of the A tile, taps (dy, 0) and (dy, 1) of x channel c
+// (pair w + 8 i of warp w), and gradient rows 2 q, 2 q + 1 (pair q = w +
+// 8 i).  So the lanes of a load read 32 consecutive elements of a region
+// or two, and those of a store 128 bytes.
+template <class C>
+struct WgradSpanLoader {
+  static constexpr int BK = C::BK, CA = C::CA, D = WGRAD_GROUP;
+  static constexpr int PIX = C::PIX, ITEMS = CA + C::TN;
+  static constexpr int APT = CA * 2 / 8;            // A row pairs a thread
+  static constexpr int BPT = (C::TN / 2 + 7) / 8;   // B row pairs a thread
+  static constexpr int VALID_BIT = 12;     // pixel-table bit: m < m_end
+  static_assert(THREADS == 256 && BK == 32 && CA * 2 % 8 == 0,
+                "8 producer warps; 16 words a row; lane = pixel");
+  static_assert(ITEMS <= THREADS && PIX <= THREADS,
+                "a copy item, a table pixel, a thread");
+  const WgradSpanSmem<C>& sm;
+  const uint16_t* __restrict__ g;
+  const uint16_t* __restrict__ x;
+  int flags, cin, hin, win, hw, wo, hwo, n_out, n0, k0, pad, pt;
+  int m_begin, m_end;
+  // the runs of the group planned last: its first image and run count,
+  // the x runs' first start, last end and run 0's slot room, and the
+  // gradient runs' likewise
+  int b0, nr, lo_a, hi_a, cap_a, r0, hi_g, cap_g;
+  // the input stage of this thread's channels (pt >> 6) + 4 i: bf16 si in
+  // the low half, ti in the high half
+  uint32_t st[APT];
+
+  __device__ void load_affine() {
+#pragma unroll
+    for (int i = 0; i < APT; ++i) {
+      const int ci = k0 / 4 + (pt >> 6) + 4 * i;
+      st[i] = 0;
+      if ((flags & IN_AFFINE) && ci < cin)
+        st[i] = __byte_perm(__float_as_uint(sm.st[ci]),
+                            __float_as_uint(sm.st[cin + ci]), 0x5410);
+    }
+  }
+
+  // Image, offset in its (Ho, Wo) plane and tap (0, 0) offset in x's
+  // plane of pixel m.
+  __device__ void pixel(int m, int& b, int& r, int& tb) const {
+    b = m / hwo;
+    r = m - b * hwo;
+    const int oy = r / wo;
+    tb = (oy - pad) * win + (r - oy * wo) - pad;
+  }
+
+  // The runs of this thread's copy item: f(source, chunked start, chunked
+  // end, slot place) for each.
+  template <class F>
+  __device__ void item_runs(int half, F f) const {
+    const int e = 8 * (pt & 31) + (pt >> 5);
+    const uint16_t* src;
+    int p, step, plane, lo, hi, cap0;
+    uint16_t* dst = sm.ring + half * sm.slot;
+    if (e < CA && k0 / 4 + e < cin) {
+      src = x;
+      p = (b0 * cin + k0 / 4 + e) * hw;
+      step = cin * hw;
+      plane = hw;
+      lo = lo_a;
+      hi = hi_a;
+      cap0 = cap_a;
+      dst += e * sm.span_a;
+    } else if (e >= CA && e < ITEMS && n0 + e - CA < n_out) {
+      src = g;
+      p = (b0 * n_out + n0 + e - CA) * hwo;
+      step = n_out * hwo;
+      plane = hwo;
+      lo = r0;
+      hi = hi_g;
+      cap0 = cap_g;
+      dst += CA * sm.span_a + (e - CA) * sm.span_b;
+    } else {
+      return;
+    }
+    for (int rr = 0; rr < nr; ++rr) {
+      const int q = p + rr * step;
+      const int s = (q + (rr ? 0 : lo)) & ~7;
+      const int end = (q + (rr == nr - 1 ? hi : plane) + 7) & ~7;
+      f(src, s, end, dst + (rr ? cap0 + (rr - 1) * run_cap(plane) : 0));
+    }
+  }
+
+  // Issue group G into ring half `half`: its runs (from its first and last
+  // pixels), its pixel table (warps 0 .. D - 1, lane = pixel), each warp's
+  // bytes on the half's mbarrier, then the copies.  A table entry holds the
+  // pixel's x-region offset of its tap (0, 0) less the run's chunk shift
+  // (.x), its gradient-region offset likewise (.y), and (.z) its in-image
+  // taps (bits 0-3), the shifts' pixel parts mod 8 (x: bits 4-6, gradient:
+  // 8-10; a channel adds its plane offset) and VALID_BIT.  Lane 0 of each
+  // warp announces the warp's bytes before any of them is copied: the
+  // phase cannot complete early.
+  __device__ void issue(int G, int half) {
+    const int m0 = m_begin + G * PIX;
+    const int m1 = (m0 + PIX < m_end ? m0 + PIX : m_end) - 1;
+    int bl, rl, t0, tl;
+    pixel(m0, b0, r0, t0);
+    pixel(m1, bl, rl, tl);
+    nr = bl - b0 + 1;
+    lo_a = t0 > 0 ? t0 : 0;
+    hi_a = tl + win + 2 < hw ? tl + win + 2 : hw;
+    cap_a = run_cap((nr == 1 ? hi_a : hw) - lo_a);
+    hi_g = rl + 1;
+    cap_g = run_cap((nr == 1 ? hi_g : hwo) - r0);
+    if (pt < PIX) {
+      int4 e = make_int4(0, 0, 0, 0);
+      const int m = m0 + pt;
+      if (m < m_end) {
+        int b, r, tb;
+        pixel(m, b, r, tb);
+        const int rr = b - b0, la = rr ? 0 : lo_a, lg = rr ? 0 : r0;
+        const int oy = r / wo;
+        Taps taps;
+        taps.at(b, oy, r - oy * wo, cin, hin, win, pad, true);
+        e.x = (rr ? cap_a + (rr - 1) * run_cap(hw) : 0) + tb - la;
+        e.y = (rr ? cap_g + (rr - 1) * run_cap(hwo) : 0) + r - lg;
+        e.z = taps.inside | ((b * cin * hw + la) & 7) << 4 |
+              ((b * n_out * hwo + lg) & 7) << 8 | 1 << VALID_BIT;
+      }
+      sm.pix[half * PIX + pt] = e;
+    }
+    int bytes = 0;
+    item_runs(half, [&](const uint16_t*, int s, int end, uint16_t*) {
+      bytes += 2 * (end - s);
+    });
+    bytes = __reduce_add_sync(0xffffffffu, bytes);
+    if ((pt & 31) == 0) mbar_arrive_expect(sm.full + half, bytes);
+    __syncwarp();
+    item_runs(half, [&](const uint16_t* src, int s, int end, uint16_t* dst) {
+      bulk_copy(dst, src + s, 2 * (end - s), sm.full + half);
+    });
+  }
+
+  // The bf16 lanes of a pair of pixels kept by `bit` of their table words.
+  __device__ static uint32_t lanes(int z0, int z1, int bit) {
+    return (z0 >> bit & 1 ? 0xFFFFu : 0u) | (z1 >> bit & 1 ? 0xFFFF0000u : 0u);
+  }
+
+  __device__ void transform(int kt, int buf) const {
+    const int half = kt / D & 1;
+    mbar_wait(sm.full + half, kt / D >> 1 & 1);
+    // every load of the stage first, then the stores (a store to the
+    // operand tile could alias a later load for all the compiler knows)
+    const int w = pt >> 5, hi16 = pt >> 4 & 1, k = pt & 15, dy = w & 1;
+    const uint16_t* ring = sm.ring + half * sm.slot;
+    const int4* px = sm.pix + half * PIX + kt % D * BK + 2 * k;
+    const int4 e0 = px[0], e1 = px[1];
+    // A: taps (dy, hi16) of pixels 2 k, 2 k + 1 of channels ca + 4 i.  The
+    // chunk shift of channel ci is (q + ci hw) & 7, so it steps by 4 hw & 7
+    // (0 or 4) with i.  A tap outside the image, or of a channel past cin,
+    // reads whatever lies there, at most win + 1 elements before the
+    // channel's region (in the operand buffers) or win + 8 past it (in the
+    // next region, or the room the launch leaves past the ring), and is
+    // masked below.
+    const int ca = k0 / 4 + (w >> 1);
+    int oa0[2], oa1[2];
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd) {
+      const int sc = (unsigned)(ca + 4 * odd) * (unsigned)hw & 7u;
+      oa0[odd] = e0.x + (((e0.z >> 4) + sc) & 7);
+      oa1[odd] = e1.x + (((e1.z >> 4) + sc) & 7);
+    }
+    const uint16_t* pa = ring + (w >> 1) * sm.span_a + dy * win + hi16;
+    uint32_t a[APT];
+#pragma unroll
+    for (int i = 0; i < APT; ++i) {
+      const uint16_t* p = pa + 4 * i * sm.span_a;
+      a[i] = (uint32_t)p[oa0[i & 1]] | (uint32_t)p[oa1[i & 1]] << 16;
+    }
+    // B: rows nb + 16 i; their chunk shift (q + (n0 + n) hwo) & 7 does not
+    // step with i
+    const int nb = 2 * w + hi16;
+    const int sg = (unsigned)(n0 + nb) * (unsigned)hwo & 7u;
+    const int ob0 = e0.y + (((e0.z >> 8) + sg) & 7);
+    const int ob1 = e1.y + (((e1.z >> 8) + sg) & 7);
+    const uint16_t* pb = ring + CA * sm.span_a + nb * sm.span_b;
+    uint32_t gv[BPT];
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) {
+      const uint16_t* p = pb + 16 * i * sm.span_b;
+      gv[i] = nb + 16 * i < C::TN
+                  ? (uint32_t)p[ob0] | (uint32_t)p[ob1] << 16
+                  : 0u;
+    }
+    // A: the input stage on bf16 pairs, then the taps outside the image
+    // (and the pixels past the chunk's end) to 0; row c * 4 + tap, 16 rows
+    // (256 words) further a step
+    const int tap = 2 * dy + hi16;
+    const uint32_t ma = lanes(e0.z, e1.z, tap);
+    uint32_t* ahi = reinterpret_cast<uint32_t*>(sm.a_hi(buf)) +
+                    op_offset(4 * (w >> 1) + tap, k);
+#pragma unroll
+    for (int i = 0; i < APT; ++i) {
+      const int ci = ca + 4 * i;
+      if (ci >= cin) break;
+      uint32_t u = a[i];
+      if (flags & IN_AFFINE)
+        u = add_bf2(mul_bf2(u, __byte_perm(st[i], 0, 0x1010)),
+                    __byte_perm(st[i], 0, 0x3232));
+      if (flags & IN_RELU) u = relu_bf2(u);
+      ahi[256 * i] = u & ma;
+    }
+    // B: the pixels past the chunk's end to 0; rows past n_out are never
+    // stored (their columns are not either)
+    const uint32_t mv = lanes(e0.z, e1.z, VALID_BIT);
+    uint32_t* bhi = reinterpret_cast<uint32_t*>(sm.b_hi(buf)) +
+                    op_offset(nb, k);
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) {
+      const int n = nb + 16 * i;
+      if (n < C::TN && n0 + n < n_out) bhi[256 * i] = gv[i] & mv;
+    }
+  }
+};
+
+// Producer side over the wgrad's span ring: group 0 is issued before the
+// loop, group G + 1 at the first stage of group G, into the other half of
+// the ring.  Every producer waits on the half's mbarrier and
+// transforms stage kt into buffer kt % NBUF once the consumers have freed
+// that (on an mbarrier: the producers do not wait for each other there,
+// so a warp's latencies overlap the others' work).  The producers'
+// barrier at the first stage of a group means that all of them are done
+// with the half (and its pixel table) that the next group overwrites;
+// within a group nothing they share is overwritten.
+template <class C>
+__device__ __forceinline__ void produce_wgrad_spans(WgradSpanLoader<C>& ld,
+                                                    int steps) {
+  constexpr int D = WGRAD_GROUP;
+  const int groups = (steps + D - 1) / D;
+  ld.issue(0, 0);
+  for (int kt = 0; kt < steps; ++kt) {
+    const int G = kt / D;
+    if (kt % D == 0) {
+      bar_sync(BAR_PRODUCERS, THREADS);
+      if (G + 1 < groups) ld.issue(G + 1, (G + 1) & 1);
+    }
+    const int buf = kt % NBUF;
+    if (kt >= NBUF) mbar_wait(ld.sm.empty + buf, (kt / NBUF - 1) & 1);
+    ld.transform(kt, buf);
+    fence_proxy_async();
+    bar_arrive(bar_full(buf, 0), THREADS + 128);
+    bar_arrive(bar_full(buf, 1), THREADS + 128);
+  }
+}
 
 // si, ti into shared memory, read by every stage's transform (rounded to
 // bf16 for the bf16 instance's input stage; for the span transform, both
@@ -1463,17 +1742,30 @@ conv2x2_kernel(const typename C::T* __restrict__ x,
 
 // Weight gradient of one conv2x2: part[chunk][n][k] = sum over the chunk's
 // pixels m of g[b, n, oy, ox] * A[k][m], A the implicit im2col of
-// in_stage(x) with the conv's pad (as in conv2x2_kernel).
+// in_stage(x) with the conv's pad (as in conv2x2_kernel).  Chunks are whole
+// stages long (the last one ragged).  bf16: g and x are 16-byte aligned
+// and their allocations run on to the next 16-byte boundary, and span_a,
+// span_b are wgrad_span_a, wgrad_span_b.
 template <class C>
 __global__ void __launch_bounds__(2 * THREADS, 1)
 wgrad_kernel(const typename C::T* __restrict__ g,
              const typename C::T* __restrict__ x,
              const float* __restrict__ si, const float* __restrict__ ti,
              int flags, float* __restrict__ part, int B, int cin, int hin,
-             int win, int n_out, int pad, long long chunk_len) {
+             int win, int n_out, int pad, long long chunk_len, int span_a,
+             int span_b) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Smem<C> sm(smem);
-  stage_affine<C>(sm, si, ti, flags, cin);
+  using S =
+      typename std::conditional<C::SPANS, WgradSpanSmem<C>, Smem<C>>::type;
+  const S sm(smem, span_a, span_b, win);
+  if constexpr (C::SPANS) {
+    if (threadIdx.x == 0) {
+      for (int h = 0; h < 2; ++h) mbar_init(sm.full + h, THREADS / 32);
+      for (int b = 0; b < NBUF; ++b) mbar_init(sm.empty + b, THREADS / 32);
+      fence_mbar_init();
+    }
+  }
+  stage_affine<C>(sm, si, ti, flags, cin);     // and the block's barrier
   const int ho = hin + 2 * pad - 1, wo = win + 2 * pad - 1;
   const int hwo = ho * wo;
   const long long M = (long long)B * hwo;
@@ -1485,7 +1777,10 @@ wgrad_kernel(const typename C::T* __restrict__ g,
 
   if (threadIdx.x < THREADS) {
     setmaxnreg_inc<CONSUMER_REGS>();
-    consume<C>(sm, steps);
+    if constexpr (C::EMPTY_MBAR)
+      consume<C>(sm, steps, sm.empty);
+    else
+      consume<C>(sm, steps);
     const int row = threadIdx.x % C::TM, k = k0 + row;
     if (k >= K) return;
     float* dst = part + (long long)blockIdx.z * n_out * K + k;
@@ -1496,16 +1791,27 @@ wgrad_kernel(const typename C::T* __restrict__ g,
   } else {
     setmaxnreg_dec<PRODUCER_REGS>();
     const int pt = threadIdx.x - THREADS;
-    WgradLoader<C> ld{sm, g, x, flags, cin, hin, win, ho, wo, n_out, n0, k0,
-                      pad, pt, pt % C::BK, pt / C::BK, m_begin + pt % C::BK,
-                      m_end, 0, 0, 0};
-    if (ld.m < M) {
-      ld.b = (int)(ld.m / hwo);
-      const int r = (int)(ld.m - (long long)ld.b * hwo);
-      ld.oy = r / wo;
-      ld.ox = r - ld.oy * wo;
+    if constexpr (C::SPANS) {
+      WgradSpanLoader<C> ld{sm, g, x, flags, cin, hin, win, hin * win, wo,
+                            hwo, n_out, n0, k0, pad, pt, (int)m_begin,
+                            (int)m_end};
+      ld.load_affine();
+      produce_wgrad_spans<C>(ld, steps);
+    } else {
+      // this thread's pixel lane of the first stage
+      const long long m = m_begin + pt % C::BK;
+      int b = 0, oy = 0, ox = 0;
+      if (m < M) {
+        b = (int)(m / hwo);
+        const int r = (int)(m - (long long)b * hwo);
+        oy = r / wo;
+        ox = r - oy * wo;
+      }
+      WgradLoader<C> ld{sm, g, x, flags, cin, hin, win, ho, wo, n_out, n0,
+                        k0, pad, pt, pt % C::BK, pt / C::BK, m, m_end, b, oy,
+                        ox};
+      produce<C>(ld, sm, steps);
     }
-    produce<C>(ld, sm, steps);
   }
 }
 
@@ -1609,9 +1915,10 @@ struct TileShape {
   int tm, tn;
 };
 
+// The wgrad tile of instance P for n_out output channels.
 template <class P>
-TileShape tile_shape(int n_out) {
-  using Tl = Tiles<P>;
+TileShape wgrad_tile(int n_out) {
+  using Tl = WgradTiles<P>;
   switch (pick_tile(n_out)) {
     case TILE8: return {Tl::T8::TM, Tl::T8::TN};
     case TILE32: return {Tl::T32::TM, Tl::T32::TN};
@@ -1706,7 +2013,7 @@ template <class P>
 Chunks wgrad_chunks(int B, int cin, int hin, int win, int n_out, int pad) {
   constexpr int bk = P::BK;
   const long long M = (long long)B * (hin + 2 * pad - 1) * (win + 2 * pad - 1);
-  const TileShape t = tile_shape<P>(n_out);
+  const TileShape t = wgrad_tile<P>(n_out);
   const int tiles = ceil_div(4 * cin, t.tm) * ceil_div(n_out, t.tn);
   long long want = ceil_div(WGRAD_TARGET_BLOCKS, tiles);
   if (want < ceil_div(M, WGRAD_MAX_CHUNK)) want = ceil_div(M, WGRAD_MAX_CHUNK);
@@ -1719,13 +2026,73 @@ Chunks wgrad_chunks(int B, int cin, int hin, int win, int n_out, int pad) {
   return c;
 }
 
+long long gcd(long long a, long long b) {
+  while (b) {
+    const long long t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// Images that a bf16 wgrad copy group's pix pixels touch at most: a group
+// starts at m_begin + G pix, a multiple of gcd(chunk length, pix), so at a
+// multiple of g = gcd(that, hwo) in its image, at most hwo - g.
+long long wgrad_images(int B, long long hwo, long long len, int pix) {
+  const long long g = gcd(gcd(len, pix), hwo);
+  const long long n = (hwo - g + pix - 1) / hwo + 1;
+  return n < B ? n : B;
+}
+
+// Elements of one x-channel region of a wgrad span slot: enough for the
+// runs of any copy group of pix pixels (see WgradSpanLoader).  A run is at
+// most its pixels long, plus win + 1: at pad 1 only in a group that lies
+// in one image (a group's pixels at the end of an image have their taps'
+// run end at the plane's end, those at its start have it begin at the
+// plane's start); at pad 0 in every image, plus one element a row wrap (a
+// row of output pixels steps one element further in x than its width).
+// Each run adds at most 14 elements of 16-byte chunking (run_cap).
+int wgrad_span_a(int B, int hin, int win, int pad, long long len) {
+  constexpr int pix = WGRAD_GROUP * Bf16::BK;
+  const long long wo = win + 2 * pad - 1, hwo = (hin + 2 * pad - 1) * wo;
+  const long long nimg = wgrad_images(B, hwo, len, pix);
+  long long need = pix + (pad ? 1 : nimg) * (win + 1);
+  if (!pad) need += (pix + wo - 1) / wo + nimg;
+  if (need > nimg * hin * win) need = nimg * hin * win;
+  need = (need + 14 * nimg + 7) / 8 * 8;
+  return need < (1 << 24) ? (int)need : 1 << 24;
+}
+
+// ... of one gradient-channel region: its runs hold the group's pixels.
+// 32 more than a multiple of 64 elements, so that the two regions a warp
+// reads at once (rows 2 q, 2 q + 1) lie 64 bytes apart in the banks.
+int wgrad_span_b(int B, long long hwo, long long len) {
+  constexpr int pix = WGRAD_GROUP * Bf16::BK;
+  const long long nimg = wgrad_images(B, hwo, len, pix);
+  long long need = (pix < nimg * hwo ? pix : nimg * hwo) + 14 * nimg;
+  need = need <= 32 ? 32 : 32 + (need - 32 + 63) / 64 * 64;
+  return need < (1 << 24) ? (int)need : 1 << 24;
+}
+
 template <class C>
 cudaError_t launch_wgrad(const typename C::T* g, const typename C::T* x,
                          const float* si, const float* ti, int flags,
                          float* part, int B, int cin, int hin, int win,
                          int n_out, int pad, Chunks ch, cudaStream_t st) {
-  // + si, ti; past ~7k channels the card refuses it (no int overflow)
-  const int smem = C::SMEM + 8 * (cin < (1 << 20) ? cin : 1 << 20);
+  int span_a = 0, span_b = 0;
+  long long main = 0;
+  if constexpr (C::SPANS) {
+    span_a = wgrad_span_a(B, hin, win, pad, ch.len);
+    span_b = wgrad_span_b(
+        B, (long long)(hin + 2 * pad - 1) * (win + 2 * pad - 1), ch.len);
+    main = C::smem(span_a, span_b, win);
+  } else {
+    main = C::SMEM;
+  }
+  // + si, ti; past the card's 227 KB it refuses the launch
+  const long long want = main + 8LL * cin;
+  if (want > 232448) return cudaErrorInvalidValue;
+  const int smem = (int)want;
   const cudaError_t e = cudaFuncSetAttribute(
       wgrad_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -1736,7 +2103,8 @@ cudaError_t launch_wgrad(const typename C::T* g, const typename C::T* x,
   const dim3 grid(ceil_div(4 * cin, C::TM), ceil_div(n_out, C::TN),
                   ch.count);
   wgrad_kernel<C><<<grid, 2 * THREADS, smem, st>>>(
-      g, x, si, ti, flags, part, B, cin, hin, win, n_out, pad, ch.len);
+      g, x, si, ti, flags, part, B, cin, hin, win, n_out, pad, ch.len,
+      span_a, span_b);
   return cudaGetLastError();
 }
 
@@ -1745,7 +2113,7 @@ cudaError_t wgrad(const typename P::T* g, const typename P::T* x,
                   const float* si, const float* ti, int flags, float* part,
                   float* dw, int B, int cin, int hin, int win, int n_out,
                   int pad, cudaStream_t st) {
-  using Tl = Tiles<P>;
+  using Tl = WgradTiles<P>;
   const Chunks ch = wgrad_chunks<P>(B, cin, hin, win, n_out, pad);
 #define MMLF_WGRAD(CFG)                                                    \
   launch_wgrad<typename Tl::CFG>(g, x, si, ti, flags, part, B, cin, hin,  \

@@ -510,13 +510,16 @@ def _assert_bf16_accurate(got, plain, ref, name):
     assert s_k <= max(s_p, 1e-5), (name, s_k, s_p)
 
 
-# (B, H, W[, x's element offset]): the recipe; a ragged shape; one image,
-# so that the channel spans of the conv GEMMs meet both ends of the
-# allocation; and x as a view 6 bytes into its buffer (not 16-byte
+# (B, H, W[, x's element offset]): the recipe; two ragged shapes, where
+# the weight gradients' 32-pixel stages cross images, an image holds an
+# odd pixel count (dW2's 13 x 17, dW1's 13 x 15) and the last stage runs
+# past the end; one image, so that the channel spans meet both ends of
+# the allocation; and x as a view 6 bytes into its buffer (not 16-byte
 # aligned, as the spans' bulk copies need: the wrapper copies it)
-@pytest.mark.parametrize('size', [(64, 96, 96), (3, 13, 17), (1, 96, 96),
-                                  (3, 13, 17, 3)],
-                         ids=['recipe', 'ragged', 'single', 'offset'])
+@pytest.mark.parametrize('size', [(64, 96, 96), (3, 13, 17), (3, 12, 14),
+                                  (1, 96, 96), (3, 13, 17, 3)],
+                         ids=['recipe', 'ragged', 'ragged_even', 'single',
+                              'offset'])
 @pytest.mark.parametrize('cin,cout,relu_in,affine_in', K3_BF16_BLOCKS)
 def test_conv_block_bf16_kernels_match_plain(cuda, size, cin, cout, relu_in,
                                              affine_in):

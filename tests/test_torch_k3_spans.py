@@ -239,3 +239,345 @@ def test_bf16_pair_ops_round_as_fp32(op):
     twice = _bf16_round(f32[keep].astype(np.float64))
     assert keep.sum() > n // 2
     np.testing.assert_array_equal(once, twice)
+
+
+# ---- the weight gradients' spans ----------------------------------------
+#
+# Both bf16 ``wgrad_kernel`` launches of a block (dW2 = sum g2 (x) taps(y1),
+# pad 0; dW1 = sum dy1 (x) taps(z), pad 1) read spans too
+# (``WgradSpanLoader``): A's rows are the im2col columns (ci, tap) of the
+# tile's 32 x channels, B's the gradient's output channels, and k the 32
+# pixels of a stage.  The copies go by groups of WGRAD_GROUP stages: a
+# group's taps of one x channel lie in one run of its plane per image (the
+# rule above for the group's pixels), and its gradient values of one
+# channel in one run of that channel's plane.  The kernel's pixel table
+# gives each pixel's offset in an x region and a gradient region; a
+# channel adds its part of the chunk shift.  Restated here with the
+# kernel's arithmetic, over every group of every chunk of the launches.
+
+def _source_value(name: str) -> int:
+    m = re.search(rf'constexpr (?:int|long long) {name} = ([\d *]+);',
+                  SRC.read_text())
+    assert m, name
+    return int(np.prod([int(v) for v in m.group(1).split('*')]))
+
+
+WGRAD_TARGET_BLOCKS = _source_value('WGRAD_TARGET_BLOCKS')
+WGRAD_MAX_CHUNK = _source_value('WGRAD_MAX_CHUNK')
+WGRAD_GROUP = _source_value('WGRAD_GROUP')
+BK = 32                        # pixels a bf16 stage
+PIX = WGRAD_GROUP * BK         # pixels a copy group
+WGRAD_TM = 128                 # x channels (4 taps each) of a wgrad tile
+CA = WGRAD_TM // 4
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def wgrad_chunks(b, cin, hin, win, n_out, pad):
+    """``(chunk length, count)`` of the kernel's ``wgrad_chunks``."""
+    m = b * (hin + 2 * pad - 1) * (win + 2 * pad - 1)
+    tiles = _cdiv(4 * cin, WGRAD_TM) * _cdiv(n_out, tile_cols(n_out))
+    want = max(_cdiv(WGRAD_TARGET_BLOCKS, tiles), _cdiv(m, WGRAD_MAX_CHUNK))
+    want = max(min(want, _cdiv(m, 16 * BK)), 1)
+    length = _cdiv(_cdiv(m, want), BK) * BK
+    return length, _cdiv(m, length)
+
+
+def wgrad_images(b, hwo, length):
+    """Images a copy group touches at most (``wgrad_images``)."""
+    g = int(np.gcd(np.gcd(length, PIX), hwo))
+    return min((hwo - g + PIX - 1) // hwo + 1, b)
+
+
+def wgrad_span_a(b, hin, win, pad, length):
+    wo, ho = win + 2 * pad - 1, hin + 2 * pad - 1
+    nimg = wgrad_images(b, ho * wo, length)
+    need = PIX + (1 if pad else nimg) * (win + 1)
+    if not pad:
+        need += _cdiv(PIX, wo) + nimg
+    return _cdiv(min(need, nimg * hin * win) + 14 * nimg, 8) * 8
+
+
+def wgrad_span_b(b, hwo, length):
+    nimg = wgrad_images(b, hwo, length)
+    need = min(PIX, nimg * hwo) + 14 * nimg
+    return 32 if need <= 32 else 32 + _cdiv(need - 32, 64) * 64
+
+
+def wgrad_smem(tn, span_a, span_b, cin, win):
+    """Dynamic shared memory of one launch (``WgradSpanCfg::smem`` and
+    si, ti)."""
+    op = (WGRAD_TM + tn) * 16
+    ring = 4 * (CA * span_a + tn * span_b)
+    main = 4 * NBUF * op + ring + ((2 * (win + 8) + 15) & ~15)
+    epi = 4 * tn * (WGRAD_TM + 4)
+    return max(main, epi) + 2 * 16 * PIX + 2 * 8 + 8 * cin
+
+
+def wgrad_groups(b, cin, hin, win, pad, n_out):
+    """Every copy group of every chunk of one launch, as the kernel plans
+    it: per group its first image, run count, x runs' (lo, hi, slot room
+    of run 0) and gradient runs' likewise; per group and pixel the pixel
+    (image, plane offsets) and its table entry."""
+    wo, ho = win + 2 * pad - 1, hin + 2 * pad - 1
+    hwo, hw = ho * wo, hin * win
+    m_total = b * hwo
+    length, count = wgrad_chunks(b, cin, hin, win, n_out, pad)
+    assert length % BK == 0
+    starts, ends = [], []
+    for z in range(count):
+        m_begin, m_end = z * length, min(m_total, (z + 1) * length)
+        s = np.arange(m_begin, m_end, PIX)
+        starts.append(s)
+        ends.append(np.full_like(s, m_end))
+    m = np.concatenate(starts)[:, None] + np.arange(PIX)[None]
+    valid = m < np.concatenate(ends)[:, None]
+    bb, r = m // hwo, m % hwo
+    oy, ox = r // wo, r % wo
+    tb = (oy - pad) * win + ox - pad
+    last = valid.sum(1) - 1
+    rows = np.arange(len(m))
+    b0 = bb[:, 0]
+    nr = bb[rows, last] - b0 + 1
+    lo_a = np.maximum(tb[:, 0], 0)
+    hi_a = np.minimum(tb[rows, last] + win + 2, hw)
+    cap_a = run_cap(np.where(nr == 1, hi_a, hw) - lo_a)
+    r0 = r[:, 0]
+    hi_g = r[rows, last] + 1
+    cap_g = run_cap(np.where(nr == 1, hi_g, hwo) - r0)
+    rr = bb - b0[:, None]
+    la = np.where(rr == 0, lo_a[:, None], 0)
+    lg = np.where(rr == 0, r0[:, None], 0)
+    da = np.where(rr == 0, 0, cap_a[:, None] + (rr - 1) * run_cap(hw)) + \
+        tb - la
+    dg = np.where(rr == 0, 0, cap_g[:, None] + (rr - 1) * run_cap(hwo)) + \
+        r - lg
+    return dict(m=m, valid=valid, b=bb, r=r, oy=oy, ox=ox, tb=tb, b0=b0,
+                nr=nr, lo_a=lo_a, hi_a=hi_a, cap_a=cap_a, r0=r0, hi_g=hi_g,
+                cap_g=cap_g, la=la, lg=lg, da=np.where(valid, da, 0),
+                dg=np.where(valid, dg, 0), qa=(bb * cin * hw + la) & 7,
+                qg=(bb * n_out * hwo + lg) & 7, length=length)
+
+
+def _runs(st, rr, channels, n_chan, plane, lo, hi, cap0):
+    """The runs rr of the given channels of every group that has one:
+    ``(s, e, dst, lo, hi)``, chunked start and end in the tensor, the
+    place in the channel's region and the run before chunking."""
+    has = st['nr'] > rr
+    lo_r = np.where(rr == 0, lo, 0)[has]
+    hi_r = np.where(rr == st['nr'] - 1, hi, plane)[has]
+    assert (0 <= lo_r).all() and (lo_r < hi_r).all() and \
+        (hi_r <= plane).all()                       # runs stay in the plane
+    p = ((st['b0'][has] + rr)[:, None] * n_chan + channels[None]) * plane
+    s = (p + lo_r[:, None]) & ~7
+    e = (p + hi_r[:, None] + 7) & ~7
+    dst = np.where(rr == 0, 0, cap0 + (rr - 1) * run_cap(plane))[has]
+    return s, e, dst[:, None], lo_r, hi_r
+
+
+def check_wgrad_launch(b, cin, hin, win, pad, n_out):
+    """Walk every copy group of every chunk of one bf16 wgrad launch (x
+    with cin channels of hin x win, the conv's pad, n_out gradient
+    channels) and check the span rule; returns the most images a group
+    touched."""
+    wo, ho = win + 2 * pad - 1, hin + 2 * pad - 1
+    hwo, hw = ho * wo, hin * win
+    st = wgrad_groups(b, cin, hin, win, pad, n_out)
+    span_a = wgrad_span_a(b, hin, win, pad, st['length'])
+    span_b = wgrad_span_b(b, hwo, st['length'])
+    tn = tile_cols(n_out)
+    assert wgrad_smem(tn, span_a, span_b, cin, win) <= SMEM_LIMIT
+    assert st['nr'].max() <= wgrad_images(b, hwo, st['length'])
+    # 16-byte chunks of every run of every channel (each residue of the
+    # plane offset mod 8, and the last channels): aligned, in the padded
+    # allocation, and inside the channel's region
+    for n_chan, plane, lo, hi, cap0, span in (
+            (cin, hw, st['lo_a'], st['hi_a'], st['cap_a'], span_a),
+            (n_out, hwo, st['r0'], st['hi_g'], st['cap_g'], span_b)):
+        alloc = _cdiv(b * n_chan * plane, 8) * 8
+        channels = np.unique(np.r_[np.arange(min(8, n_chan)),
+                                   np.arange(max(0, n_chan - 8), n_chan)])
+        for rr in range(int(st['nr'].max())):
+            s, e, dst, lo_r, hi_r = _runs(st, rr, channels, n_chan, plane,
+                                          lo, hi, cap0)
+            assert (s >= 0).all() and (e <= alloc).all()
+            assert ((e - s) <= run_cap(hi_r - lo_r)[:, None]).all()
+            assert (dst + (e - s) <= span).all()
+    valid = st['valid']
+    first = st['b'] == st['b0'][:, None]
+    lastimg = st['b'] == st['b0'][:, None] + st['nr'][:, None] - 1
+    # every in-image tap of every valid pixel lies in its run and is read
+    # where the copy put it: region offset da + (qa + ci hw) % 8 + tap
+    hi_pix = np.where(lastimg, st['hi_a'][:, None], hw)
+    at_a = np.where(first, 0, st['cap_a'][:, None] +
+                    (st['b'] - st['b0'][:, None] - 1) * run_cap(hw))
+    for dy in (0, 1):
+        for dx in (0, 1):
+            iy, ix = st['oy'] - pad + dy, st['ox'] - pad + dx
+            inside = valid & (iy >= 0) & (iy < hin) & (ix >= 0) & (ix < win)
+            local = st['tb'] + dy * win + dx
+            assert ((st['la'] <= local) & (local < hi_pix))[inside].all()
+            for ci in sorted({0, 1, cin - 1}):
+                plane0 = (st['b'] * cin + ci) * hw
+                s = (plane0 + st['la']) & ~7
+                pos = st['da'] + ((st['qa'] + ci * hw) & 7) + dy * win + dx
+                assert (pos == at_a + plane0 + local - s)[inside].all()
+                assert ((0 <= pos) & (pos < span_a))[inside].all()
+    # the unmasked loads of every tap, in or out of the image: no further
+    # than win + 1 elements before the region (into the operand buffers)
+    # nor win + 8 past it (the room the launch leaves past the ring)
+    assert 2 * (win + 1) <= 4 * NBUF * (WGRAD_TM + tn) * 16
+    assert (st['da'] >= -(win + 1)).all()
+    assert (st['da'] + 7 + win + 1 < span_a + win + 8).all()
+    # every valid pixel's gradient value, likewise, for each residue of
+    # the channel's plane offset
+    hi_g = np.where(lastimg, st['hi_g'][:, None], hwo)
+    assert ((st['lg'] <= st['r']) & (st['r'] < hi_g))[valid].all()
+    at_g = np.where(first, 0, st['cap_g'][:, None] +
+                    (st['b'] - st['b0'][:, None] - 1) * run_cap(hwo))
+    for n in sorted({0, 1, 2, 3, n_out - 1}):
+        plane0 = (st['b'] * n_out + n) * hwo
+        s = (plane0 + st['lg']) & ~7
+        pos = st['dg'] + ((st['qg'] + n * hwo) & 7)
+        assert (pos == at_g + plane0 + st['r'] - s)[valid].all()
+        assert ((0 <= pos) & (pos < span_b)).all()
+    return int(st['nr'].max())
+
+
+def _wgrad_launches(b, cin, h, w, cout):
+    """The block's two bf16 wgrad launches: (x's channels, Hin, Win, pad,
+    n_out): dW2 over y1 and g2, dW1 over x and dy1."""
+    return {'dW2': (cout, h + 1, w + 1, 0, cout), 'dW1': (cin, h, w, 1, cout)}
+
+
+WGRAD_BLOCKS = [(27, 70), (70, 70), (280, 280), (280, 108)]
+WGRAD_CASES = [((64, 96, 96), blk) for blk in WGRAD_BLOCKS] + \
+    [((3, 13, 17), blk) for blk in WGRAD_BLOCKS] + \
+    [((3, 12, 14), blk) for blk in WGRAD_BLOCKS] + \
+    [((1, 96, 96), (280, 280)), ((1, 13, 17), (70, 70)),
+     ((2, 5, 3), (27, 70))]
+
+
+@pytest.mark.parametrize('launch', ['dW2', 'dW1'])
+@pytest.mark.parametrize('size,block', WGRAD_CASES,
+                         ids=[f'B{s[0]}_{s[1]}x{s[2]}_{c[0]}to{c[1]}'
+                              for s, c in WGRAD_CASES])
+def test_wgrad_span_rule_covers_every_tap(size, block, launch):
+    b, h, w = size
+    cin, hin, win, pad, n_out = _wgrad_launches(b, block[0], h, w,
+                                                block[1])[launch]
+    check_wgrad_launch(b, cin, hin, win, pad, n_out)
+
+
+def test_wgrad_spans_at_the_recipe():
+    """The recipe's wgrad regions (B 64, 96², chunks of 4096 pixels):
+    dW2's groups never leave an image (96² pixels is whole groups), dW1's
+    cross one at most; a 280->280 half of the ring is ~62 KB, and every
+    launch of the recipe's blocks fits the card."""
+    assert wgrad_chunks(64, 280, 97, 97, 280, 0) == (4096, 144)
+    assert wgrad_chunks(64, 280, 96, 96, 280, 1) == (4096, 148)
+    assert wgrad_images(64, 96 * 96, 4096) == 1
+    assert wgrad_images(64, 97 * 97, 4096) == 2
+    assert (wgrad_span_a(64, 97, 97, 0, 4096),
+            wgrad_span_b(64, 96 * 96, 4096)) == (248, 160)
+    assert (wgrad_span_a(64, 96, 96, 1, 4096),
+            wgrad_span_b(64, 97 * 97, 4096)) == (256, 160)
+    for cin, cout in WGRAD_BLOCKS + [(280, 2)]:
+        for c, hin, win, pad, n_out in _wgrad_launches(64, cin, 96, 96,
+                                                       cout).values():
+            length = wgrad_chunks(64, c, hin, win, n_out, pad)[0]
+            sa = wgrad_span_a(64, hin, win, pad, length)
+            sb = wgrad_span_b(64, (hin + 2 * pad - 1) * (win + 2 * pad - 1),
+                              length)
+            assert wgrad_smem(tile_cols(n_out), sa, sb, c, win) <= SMEM_LIMIT
+
+
+def test_wgrad_many_images_a_group():
+    """Images smaller than a group: a run per image, the middle ones whole
+    planes; and groups that cross images, ragged last groups."""
+    assert check_wgrad_launch(40, 8, 3, 4, 0, 8) > 2
+    assert check_wgrad_launch(40, 8, 2, 3, 1, 70) > 2
+    st = wgrad_groups(3, 70, 13, 17, 1, 70)
+    assert (st['nr'] == 2).any() and st['valid'].sum(1).min() < PIX
+
+
+@pytest.mark.parametrize('tn', [144, 112, 72, 32, 8])
+def test_wgrad_transform_lanes_cover_the_tiles(tn):
+    """The transform's threads (warp w, lane) and loop steps i write every
+    word of the A tile (rows c * 4 + tap of the 32 channels) and of the B
+    tile's tn rows exactly once, a warp instruction two rows (128 bytes)."""
+    a, bt = np.zeros((WGRAD_TM, 16), int), np.zeros((tn, 16), int)
+    for w in range(8):
+        for lane in range(32):
+            hi16, k, dy = lane >> 4, lane & 15, w & 1
+            for i in range(CA * 2 // 8):
+                a[((w >> 1) + 4 * i) * 4 + 2 * dy + hi16, k] += 1
+            for i in range(_cdiv(tn // 2, 8)):
+                n = 2 * (w + 8 * i) + hi16
+                if n < tn:
+                    bt[n, k] += 1
+    assert (a == 1).all() and (bt == 1).all()
+
+
+@pytest.mark.parametrize('b,h,w,pad', [(3, 13, 17, 1), (3, 12, 14, 0),
+                                       (2, 5, 3, 1), (40, 2, 3, 0)],
+                         ids=['pad1_13x17', 'pad0_12x14', 'pad1_5x3',
+                              'pad0_many_images'])
+def test_wgrad_transform_equals_im2col(b, h, w, pad):
+    """A numpy model of the span wgrad's copies and transform: each group's
+    regions filled run by run as the bulk copies fill them (16-byte chunks
+    of the flat tensors), then every pixel's A values (rows (ci, tap)) and
+    B values (row n) read through the pixel table with the transform's
+    offsets and masks.  Both equal an explicit im2col of x (zero padding,
+    pixels past the end zero) and the gradient's values."""
+    cin, n_out = 11, 6
+    rng = np.random.default_rng(h * w + pad)
+    x = rng.integers(1, 1000, (b, cin, h, w))
+    wo, ho = w + 2 * pad - 1, h + 2 * pad - 1
+    hwo, hw = ho * wo, h * w
+    g = rng.integers(1, 1000, (b, n_out, ho, wo))
+    st = wgrad_groups(b, cin, h, w, pad, n_out)
+    span_a = wgrad_span_a(b, h, w, pad, st['length'])
+    span_b = wgrad_span_b(b, hwo, st['length'])
+    xf, gf = x.ravel(), g.ravel()
+    xf = np.r_[xf, np.zeros(_cdiv(xf.size, 8) * 8 - xf.size, int)]
+    gf = np.r_[gf, np.zeros(_cdiv(gf.size, 8) * 8 - gf.size, int)]
+    zpad = np.pad(x, ((0, 0), (0, 0), (pad, pad), (pad, pad)))
+    for k in range(len(st['m'])):
+        v, bb, oy, ox = (st[n][k] for n in ('valid', 'b', 'oy', 'ox'))
+        regions = {}
+        for name, flat, n_chan, plane, lo, hi, cap0, span in (
+                ('a', xf, cin, hw, st['lo_a'][k], st['hi_a'][k],
+                 st['cap_a'][k], span_a),
+                ('g', gf, n_out, hwo, st['r0'][k], st['hi_g'][k],
+                 st['cap_g'][k], span_b)):
+            reg = np.full((n_chan, span), -1)
+            for c in range(n_chan):
+                for rr in range(st['nr'][k]):
+                    p = ((st['b0'][k] + rr) * n_chan + c) * plane
+                    s = (p + (lo if rr == 0 else 0)) & ~7
+                    e = (p + (hi if rr == st['nr'][k] - 1 else plane) + 7) \
+                        & ~7
+                    d = 0 if rr == 0 else cap0 + (rr - 1) * run_cap(plane)
+                    reg[c, d:d + e - s] = flat[s:e]
+            regions[name] = reg
+        for ci in range(cin):
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    iy, ix = oy - pad + dy, ox - pad + dx
+                    inside = v & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                    pos = st['da'][k] + ((st['qa'][k] + ci * hw) & 7) + \
+                        dy * w + dx
+                    got = np.where(inside, regions['a'][ci][
+                        np.clip(pos, 0, span_a - 1)], 0)
+                    want = np.where(v, zpad[bb % b, ci,
+                                            (oy + dy) % zpad.shape[2],
+                                            (ox + dx) % zpad.shape[3]], 0)
+                    np.testing.assert_array_equal(got, want)
+        for n in range(n_out):
+            pos = st['dg'][k] + ((st['qg'][k] + n * hwo) & 7)
+            got = np.where(v, regions['g'][n][pos], 0)
+            want = np.where(v, g[bb % b, n, oy % ho, ox % wo], 0)
+            np.testing.assert_array_equal(got, want)
