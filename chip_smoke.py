@@ -10,6 +10,8 @@
                                    # (7b-7e, 10b)
     python3 chip_smoke.py bf16_trunk  # card, build, data and
                                    # train_bf16_trunk (7d) only
+    python3 chip_smoke.py host     # card, build, data, host, train_host
+    python3 chip_smoke.py unet     # card, build, data and unet
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -20,6 +22,13 @@ Phases, in order; any failure exits non-zero and prints no result:
              wgrad_kernel instance);
 3. data    — 4 synthetic 512² train scenes (seeds 0-3) and one val scene
              (seed 7), one process each;
+3b. host   — the port's host library (csrc_host/mmlf_native.cpp) built by
+             g++ into build/host and loaded (a failed build raises); the val
+             scene's texture mask, native against the numpy fallback
+             (equal), both timed; strided_window against numpy slicing at
+             f = 1..4 (equal); the host sampler's ms per batch of 512 at
+             the recipe with 4 and with 0 worker threads, and the batch's
+             copy to the card from pinned memory;
 4. train   — the README UPR recipe through the train CLI at full width
              (chs 70, 3+8 blocks, 9 views): bs 512 as 8 microbatches of
              64, ps 96, train_shift 2.5, warm-start LR 1e-3, TRAIN_STEPS
@@ -64,6 +73,19 @@ Phases, in order; any failure exits non-zero and prints no result:
              the backward of 27→70, 70→70 and 280→280 at two ragged
              shapes (stages that cross images, odd image sizes, a last
              stage past the end), every output held the same way;
+7f. train_host — the recipe with ``--host_pipeline --bf16 --pallas_trunk``
+             for TRAIN_STEPS steps: the windows cut on the host, copied to
+             the card and augmented there; checks the log rows, the
+             checkpoint, K3's bf16 instance 20 × accum × steps times each
+             way and K1 none, and that the run's first host batch equals
+             the one the same seed gives with native code disabled; prints
+             s/step, the sampler's and the copy's ms per batch and peak
+             memory;
+7g. unet   — the recipe with ``--model_unet`` (fp32) for UNET_STEPS steps,
+             K1 accum × steps times; ESE validation of its checkpoint
+             (whole scene, K2 once); one exported UPR artifact served over
+             HTTP, its mean within SERVE_TOL of the direct eval forward's;
+             prints s/step, s/scene, runtime_s and peak memory;
 8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
@@ -123,6 +145,8 @@ SIZE = 512
 TRAIN_SCENES = 4
 TRAIN_STEPS = 4
 TRUNK_STEPS = 4
+# steps of phase unet (the recipe with --model_unet)
+UNET_STEPS = 4
 # the recipe's trunk blocks per microbatch: 4 streams x 3 blocks + 8 out_net
 TRUNK_BLOCKS = 4 * 3 + 8
 # the README UPR recipe (bs 512 as 8 microbatches of 64)
@@ -463,48 +487,76 @@ def check_gather(W, cache, batch, win, what: str) -> float:
 
 
 def phase_train(M, train: str, val: str, run: str, steps: int,
-                trunk: bool = False, bf16: bool = False) -> dict:
+                trunk: bool = False, bf16: bool = False, host: bool = False,
+                unet: bool = False) -> dict:
     """The README UPR recipe through the train CLI (with ``--pallas_trunk``
     when ``trunk``; with ``--bf16 --cache_bf16`` when ``bf16``: a bf16
     trunk, through K3's bf16 instance under ``trunk``, and K1 cutting bf16
-    image windows), then K1 against its plain version on the run's own
-    last batch.  ``M`` holds the kernel modules."""
+    image windows; ``host``: ``--host_pipeline`` instead of
+    ``--cache_bf16``, the windows cut on the host and K1 never launched;
+    ``unet``: ``--model_unet``), then K1 against its plain version on the
+    run's own last batch (the device cache's runs).  ``M`` holds the
+    kernel modules."""
     import numpy as np
     import torch
     from mmlf_tpu_torch.train import cli, loop
 
-    # record the pipeline the run builds, to reread its last batch
-    seen = {}
+    # record the pipeline the run builds (its batches, the host sampler's
+    # and the copy's host-clock seconds)
+    seen = {'sample_s': [], 'copy_s': []}
+    base = loop.TrainPipeline if host else loop.DevicePipeline
 
-    class Recording(loop.DevicePipeline):
-        def sample_batch(self, batch_size):
-            seen['batch'] = super().sample_batch(batch_size)
-            seen['pipeline'] = self
-            return seen['batch']
+    class Recording(base):
+        def sample_batch(self, *a, **kw):
+            t0 = time.perf_counter()
+            batch = super().sample_batch(*a, **kw)
+            seen['sample_s'].append(time.perf_counter() - t0)
+            seen.setdefault('first', batch)
+            seen['batch'], seen['pipeline'] = batch, self
+            return batch
 
-    loop.DevicePipeline = Recording
+    to_device = loop.batch_to_device
+
+    def timed_to_device(*a, **kw):
+        t0 = time.perf_counter()
+        out = to_device(*a, **kw)
+        torch.cuda.synchronize()
+        seen['copy_s'].append(time.perf_counter() - t0)
+        return out
+
+    setattr(loop, base.__name__, Recording)
+    loop.batch_to_device = timed_to_device
     os.makedirs(run)
     args = [run, '--train_trainset', train, '--train_valset', val,
             *RECIPE, '--train_steps', str(steps), '--train_nan_guard']
     if trunk:
         args.append('--pallas_trunk')
     if bf16:
-        args += ['--bf16', '--cache_bf16']
+        args += ['--bf16'] if host else ['--bf16', '--cache_bf16']
+    if host:
+        args.append('--host_pipeline')
+    if unet:
+        args.append('--model_unet')
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(M)
     t = time.time()
-    state = cli.main(args, standalone_mode=False)
-    torch.cuda.synchronize()
+    try:
+        state = cli.main(args, standalone_mode=False)
+        torch.cuda.synchronize()
+    finally:
+        setattr(loop, base.__name__, base)
+        loop.batch_to_device = to_device
     wall = time.time() - t
     launches = read_launches(M)
     peak = torch.cuda.max_memory_allocated()
-    loop.DevicePipeline = Recording.__bases__[0]
 
     accum = int(RECIPE[RECIPE.index('--train_accum') + 1])
-    k3 = TRUNK_BLOCKS * accum * steps if trunk else 0
+    # the U-Net turns the fused trunk off, as in the JAX package
+    k3 = TRUNK_BLOCKS * accum * steps if trunk and not unet else 0
     sfx = '_bf16' if bf16 else ''
-    want = expected(M, **{f'window_gather{sfx}': steps * accum,
+    k1 = 'window_gather' + ('_bf16' if bf16 and not host else '')
+    want = expected(M, **{k1: 0 if host else steps * accum,
                           f'fused_double_conv_fwd{sfx}': k3,
                           f'fused_double_conv_bwd{sfx}': k3})
     if launches != want:
@@ -523,35 +575,47 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
     if ckpt['iteration'] != steps or \
             ckpt['optimizer_state_dict'] is None or \
             hyper['pallas_trunk'] != trunk or hyper['bf16'] != bf16 or \
-            hyper['cache_bf16'] != bf16:
+            hyper['cache_bf16'] != (bf16 and not host) or \
+            hyper['host_pipeline'] != host or hyper['model_unet'] != unet:
         raise AssertionError('checkpoint.pt does not hold the final step')
     del state
 
-    # K1 on the run's own last batch, microbatch by microbatch
     pipe, batch = seen['pipeline'], seen['batch']
-    from mmlf_tpu_torch.data.pipeline import chunk_slice
-    size = len(batch.scene) // accum
-    for c in range(accum):
-        check_gather(M.W, pipe.cache, chunk_slice(batch, c * size,
-                                                  (c + 1) * size),
-                     pipe.win, f'train batch chunk {c}')
+    size = len(batch.aug.shift) // accum
+    if not host:
+        # K1 on the run's own last batch, microbatch by microbatch
+        from mmlf_tpu_torch.data.pipeline import chunk_slice
+        for c in range(accum):
+            check_gather(M.W, pipe.cache, chunk_slice(batch, c * size,
+                                                      (c + 1) * size),
+                         pipe.win, f'train batch chunk {c}')
 
-    name = 'train' + ('_bf16' if bf16 else '') + ('_trunk' if trunk else '')
+    name = 'train' + ('_unet' if unet else '') + ('_host' if host else '') \
+        + ('_bf16' if bf16 else '') + ('_trunk' if trunk else '')
     bs = int(RECIPE[RECIPE.index('--train_bs') + 1])
     ps = int(RECIPE[RECIPE.index('--train_ps') + 1])
     steady = [r[5] for r in rows[1:]]
     s_step = sum(steady) / len(steady)
     flop = 3 * conv_flop_per_pixel() * ps * ps * bs
+    flops = '' if unet else (
+        f'{flop / s_step / 1e12:.1f} TFLOP/s conv fwd+bwd '
+        f'{"bf16" if bf16 else "fp32"} ({flop / 1e12:.1f} TFLOP/step, 3 x '
+        f'forward), ')
+    host_ms = ''
+    if host:
+        ms = {k: [round(x * 1e3, 1) for x in seen[k]]
+              for k in ('sample_s', 'copy_s')}
+        host_ms = (f'host sampler {ms["sample_s"]} ms per batch of {bs}, '
+                   f'host-to-device copy {ms["copy_s"]} ms, ')
     log(f'{name}: {steps} steps of bs {bs} ({accum} x {size}), ps {ps}, '
         f'in {wall:.1f} s CLI wall; steady steps {steady} s, '
-        f'{s_step:.3f} s/step, {bs / s_step:.1f} patches/s, '
-        f'{flop / s_step / 1e12:.1f} TFLOP/s conv fwd+bwd '
-        f'{"bf16" if bf16 else "fp32"} '
-        f'({flop / 1e12:.1f} TFLOP/step, 3 x forward), peak device memory '
-        f'{peak / 2**30:.2f} GiB, launches {launches}, losses '
-        f'{[r[1] for r in rows]}')
+        f'{s_step:.3f} s/step, {bs / s_step:.1f} patches/s, {flops}'
+        f'{host_ms}peak device memory {peak / 2**30:.2f} GiB, launches '
+        f'{launches}, losses {[r[1] for r in rows]}')
     return {'launches': launches, 'pipeline': pipe, 's_step': s_step,
-            'size': size, 'peak': peak}
+            'size': size, 'peak': peak, 'first': seen.get('first'),
+            'sample_s': seen['sample_s'], 'copy_s': seen['copy_s'],
+            'hyper': hyper}
 
 
 def phase_window_gather(W, pipe, size: int) -> dict:
@@ -1438,9 +1502,10 @@ def phase_member_time() -> None:
             f'{members * (fwd_ms + shift_ms) / 1e3:.2f} s')
 
 
-def phase_breakdown(run: str, val: str) -> None:
+def phase_breakdown(run: str, val: str, host: dict) -> None:
     """Host-clock times of the validate path's pieces outside the member
-    forwards, on the main path's scene and member dumps."""
+    forwards, on the main path's scene and member dumps; the texture mask
+    runs in the host library (phase host timed the numpy fallback)."""
     import numpy as np
     import torch
     from mmlf_tpu_torch.data.hci4d import HCI4D
@@ -1471,9 +1536,10 @@ def phase_breakdown(run: str, val: str) -> None:
                                                torch.exp(dv)))
     _, t_d2h = timed(lambda: (dm.cpu(), dv.cpu()))
     log(f'breakdown (host clock): scene load {t_load:.3f} s (texture mask '
-        f'{t_tex:.3f} s of it), calibration guard {t_cal:.3f} s, ESE KLD '
-        f'discretization {t_lmm:.3f} s, member dumps to host '
-        f'{t_d2h:.3f} s')
+        f'{t_tex:.3f} s of it, native; the numpy fallback '
+        f'{host["mask_numpy_s"]:.3f} s in phase host), calibration guard '
+        f'{t_cal:.3f} s, ESE KLD discretization {t_lmm:.3f} s, member dumps '
+        f'to host {t_d2h:.3f} s')
 
 
 def phase_bf16(M, train: str, val: str, work: str, card: str) -> dict:
@@ -1513,6 +1579,269 @@ def phase_bf16(M, train: str, val: str, work: str, card: str) -> dict:
     torch.cuda.empty_cache()
     return {'gather': gather, 'k1_launches': k1, 'k3': k3,
             'k3_launches': k3_launches, 'run': run}
+
+
+def recipe_config(train: str):
+    """The Config the train CLI builds from RECIPE on ``train``."""
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.train import cli
+    params = cli.main.make_context('train', [train, *RECIPE]).params
+    del params['output_dir'], params['device']
+    return Config.from_dict(params).finalize()
+
+
+def phase_host(train: str, val: str, card: str) -> dict:
+    """The host runtime: the port's host library built with g++ and loaded
+    (a build failure raises with g++'s output); the val scene's texture
+    mask, native against the numpy fallback (equal), both timed;
+    ``strided_window`` against numpy slicing at f = 1..4 on a recipe scene
+    (equal); the host sampler's ms per batch of 512 at the recipe, with
+    the default workers and with ``--train_num_workers 0``, and the batch's
+    copy to the card from pinned memory."""
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch import native
+    from mmlf_tpu_torch.data.hci4d import HCI4D
+    from mmlf_tpu_torch.data.pipeline import TrainPipeline, batch_to_device
+    from mmlf_tpu_torch.ops.masks import create_mask_texture
+
+    native.reset()
+    t = time.time()
+    path = native.build()
+    build_s = time.time() - t
+    if native.get_lib() is None or native.loaded_path() != path or \
+            os.path.commonpath([str(path), os.path.join(REPO, 'build')]) \
+            != os.path.join(REPO, 'build'):
+        raise AssertionError(f'host library not loaded from build/: '
+                             f'{native.loaded_path()}')
+    log(f'host: library {os.path.relpath(str(path), REPO)} built and '
+        f'loaded in {build_s:.1f} s (g++ {" ".join(native.CXX_FLAGS)})')
+
+    center = HCI4D(val)[0][4]
+    t = time.perf_counter()
+    mask_native = create_mask_texture(center)
+    native_s = time.perf_counter() - t
+    os.environ[native.DISABLE_ENV] = '1'
+    native.reset()
+    try:
+        t = time.perf_counter()
+        mask_numpy = create_mask_texture(center)
+        numpy_s = time.perf_counter() - t
+    finally:
+        del os.environ[native.DISABLE_ENV]
+        native.reset()
+    if native.get_lib() is None:
+        raise AssertionError('host library not reloaded')
+    if not np.array_equal(mask_native, mask_numpy):
+        raise AssertionError(f'texture mask: native and numpy differ at '
+                             f'{int((mask_native != mask_numpy).sum())} '
+                             f'pixels')
+    log(f'host: texture mask of the {center.shape[0]}x{center.shape[1]} val '
+        f'scene: native {native_s:.3f} s, numpy {numpy_s:.3f} s, equal '
+        f'({int(mask_native.sum())} textured pixels); {os.cpu_count()} '
+        f'host cores')
+
+    cfg = recipe_config(train)
+    pipe = TrainPipeline(HCI4D(train, cache=True), cfg, seed=0)
+    rng = np.random.default_rng(0)
+    src = pipe.scenes[0]['h']
+    for f in range(1, 5):
+        hf, wf = -(-src.shape[1] // f), -(-src.shape[2] // f)
+        for _ in range(4):
+            y, x = rng.integers(0, hf - pipe.win + 1), \
+                rng.integers(0, wf - pipe.win + 1)
+            got = native.strided_window(src, y, x, f, pipe.win)
+            want = src[:, ::f, ::f][:, y:y + pipe.win, x:x + pipe.win]
+            if not np.array_equal(got, want):
+                raise AssertionError(f'strided_window differs at f={f}, '
+                                     f'({y}, {x})')
+    log(f'host: strided_window equals numpy slicing at f = 1..4 '
+        f'(window {pipe.win} of a {src.shape} stack, 4 starts each)')
+
+    bs = cfg.train_bs
+    res = {}
+    # the first batch with workers also allocates the pinned buffers; the
+    # cutter in the loop's thread takes ~4x as long, so one batch of it
+    for workers, reps in ((cfg.train_num_workers, 3), (0, 1)):
+        pipe.cfg = cfg.__class__.from_dict({**cfg.to_dict(),
+                                            'train_num_workers': workers})
+        times, copies = [], []
+        for _ in range(reps):
+            t = time.perf_counter()
+            batch = pipe.sample_batch(bs, pin_memory=True)
+            times.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dev = batch_to_device(batch, 'cuda', with_mpi=False)
+            torch.cuda.synchronize()
+            copies.append(time.perf_counter() - t)
+            n_bytes = sum(x.numel() * x.element_size() for x in dev[:-1]
+                          if x is not None)
+            del dev, batch
+        res[workers] = (times, copies)
+        log(f'host: sampler at the recipe (bs {bs}, ps {cfg.train_ps}, '
+            f'window {pipe.win}, f 1..{pipe.max_f}) with {workers} workers: '
+            f'{[round(x * 1e3, 1) for x in times]} ms per batch; its copy '
+            f'to the card from pinned memory ({n_bytes / 1e9:.2f} GB, MPI '
+            f'left out) {[round(x * 1e3, 1) for x in copies]} ms '
+            f'({n_bytes / min(copies) / 1e9:.1f} GB/s); card {card}')
+    pipe.close()
+    return {'mask_native_s': native_s, 'mask_numpy_s': numpy_s,
+            'sampler': res}
+
+
+def phase_train_host(M, train: str, val: str, work: str, card: str) -> dict:
+    """The recipe with ``--host_pipeline --bf16 --pallas_trunk``: the
+    windows cut on the host and augmented on the card, K3's bf16 instance
+    forward and backward 20 x accum x steps times each, K1 never; then the
+    run's first host batch against the batch the same seed gives with
+    native code disabled (equal, bit for bit)."""
+    import numpy as np
+    from mmlf_tpu_torch import native
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.data.hci4d import HCI4D
+    from mmlf_tpu_torch.data.pipeline import TrainPipeline
+
+    run = phase_train(M, train, val, os.path.join(work, 'run_host'),
+                      TRAIN_STEPS, trunk=True, bf16=True, host=True)
+    first = run.pop('first')
+    cfg = Config.from_dict(run['hyper'])
+    os.environ[native.DISABLE_ENV] = '1'
+    native.reset()
+    try:
+        pipe = TrainPipeline(HCI4D(train, cache=True), cfg,
+                             seed=cfg.train_seed)
+        want = pipe.sample_batch(cfg.train_bs)
+        pipe.close()
+    finally:
+        del os.environ[native.DISABLE_ENV]
+        native.reset()
+    for k in want._fields[:-1]:
+        if not np.array_equal(getattr(first, k), getattr(want, k)):
+            raise AssertionError(f'train_host: first batch field {k} '
+                                 f'differs from the numpy cutter\'s')
+    for k in want.aug._fields:
+        if not np.array_equal(getattr(first.aug, k), getattr(want.aug, k)):
+            raise AssertionError(f'train_host: first batch aug.{k} differs')
+    del first, want
+    sample_ms = 1e3 * sum(run['sample_s'][1:]) / len(run['sample_s'][1:])
+    copy_ms = 1e3 * sum(run['copy_s'][1:]) / len(run['copy_s'][1:])
+    log(f'train_host: first host batch equals the numpy cutter\'s bit for '
+        f'bit; steady {run["s_step"]:.3f} s/step, sampler {sample_ms:.1f} '
+        f'ms and copy {copy_ms:.1f} ms per batch, peak device memory '
+        f'{run["peak"] / 2**30:.2f} GiB; card {card}')
+    gc.collect()
+    return {'launches': run['launches'], 's_step': run['s_step'],
+            'sample_ms': sample_ms, 'copy_ms': copy_ms, 'peak': run['peak']}
+
+
+def phase_unet(M, train: str, val: str, work: str, card: str) -> dict:
+    """The recipe with ``--model_unet`` (fp32, K1 accum x steps times),
+    then ESE validation of its checkpoint through the validate CLI (whole
+    scene, K2 once), and one exported UPR artifact served over HTTP after
+    one warm-up, its mean against the direct eval forward's (SERVE_TOL)."""
+    import threading
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.data.hci4d import HCI4D
+    from mmlf_tpu_torch.export import export_inference
+    from mmlf_tpu_torch.models.feed_forward import FeedForward
+    from mmlf_tpu_torch.serve import InferenceEngine, make_server
+    from mmlf_tpu_torch.utils import pfm
+    from mmlf_tpu_torch.validate import cli
+    from mmlf_tpu_torch.validate.cli import load_model_state, scene_to_device
+
+    run = os.path.join(work, 'run_unet')
+    trained = phase_train(M, train, val, run, UNET_STEPS, unet=True)
+    k1 = trained['launches']['window_gather']
+    s_step, train_peak = trained['s_step'], trained['peak']
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(M)
+    t = time.time()
+    result = cli.main([run, val, '--val_ensamble'], standalone_mode=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_launches(M)
+    val_peak = torch.cuda.max_memory_allocated()
+    for key in METRICS:
+        if not math.isfinite(result[key]):
+            raise AssertionError(f'unet metric {key} = {result[key]}')
+    if counts != expected(M, laplace_mixture_posterior=1):
+        raise AssertionError(f'unet ESE validate launched {counts}')
+    gmm = np.load(os.path.join(run, 'scenes', 'scene_00', 'gmm.npy'))
+    if gmm.shape != (2, 70, SIZE, SIZE) or not np.isfinite(gmm).all():
+        raise AssertionError(f'unet gmm.npy {gmm.shape}')
+    log(f'unet: ESE validate {result["runtime"]:.3f} s/scene (CLI runtime), '
+        f'{wall:.3f} s CLI wall, peak device memory {val_peak / 2**30:.3f} '
+        f'GiB, mixture posterior launches '
+        f'{counts["laplace_mixture_posterior"]}; metrics '
+        + json.dumps({k: result[k] for k in METRICS}))
+
+    # the direct eval forward of the checkpoint on the val scene
+    state, hyper = load_model_state(run)
+    model = FeedForward.from_config(Config.from_dict(hyper))
+    model.load_state_dict(state, strict=True)
+    model.cuda().eval()
+    stacks, _, _ = scene_to_device(HCI4D(val)[0], torch.device('cuda'))
+    with torch.no_grad():
+        direct = model(*stacks)['mean'][0].cpu().numpy()
+    del model, stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve_dir = os.path.join(work, 'serve_unet')
+    os.makedirs(serve_dir)
+    art = os.path.join(serve_dir, 'upr_unet.mmlft')
+    with open(art, 'wb') as f:
+        f.write(export_inference(run, SIZE, SIZE))
+    reset_launches(M)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(art)
+    server = make_server(engine, '127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out = os.path.join(serve_dir, 'out')
+    req = {'scene_dir': os.path.join(val, 'scene_00'), 'out_dir': out}
+    try:
+        port = server.server_address[1]
+        answers = [_http(port, 'POST', '/infer', req) for _ in range(2)]
+        torch.cuda.synchronize()
+        serve_peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    del engine
+    for status, resp, _ in answers:
+        if status != 200:
+            raise AssertionError(f'unet serve: {status} {resp}')
+    if read_launches(M) != expected(M):
+        raise AssertionError(f'unet UPR request launched {read_launches(M)}')
+    # result.pfm holds the mean flipped upside down (the reference's layout)
+    mean = np.flip(pfm.load(os.path.join(out, 'result.pfm')), 0)
+    diff = float(np.abs(mean - direct).max())
+    if mean.shape != (SIZE, SIZE) or not diff <= SERVE_TOL:
+        raise AssertionError(f'unet serve: result.pfm {mean.shape}, max '
+                             f'|d mean| against the direct forward {diff}')
+    _, resp, http_wall = answers[1]
+    log(f'unet_serve: UPR request after one warm-up: runtime_s '
+        f'{resp["runtime_s"]:.4f} s, HTTP wall {http_wall:.4f} s, max |d '
+        f'mean| against the direct eval forward {diff:.3e} (limit '
+        f'{SERVE_TOL}), peak device memory {serve_peak / 2**30:.3f} GiB; '
+        f'U-Net train {s_step:.3f} s/step, {train_peak / 2**30:.2f} GiB; '
+        f'card {card}')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'k1_launches': k1, 'k2_launches': counts[
+        'laplace_mixture_posterior'], 's_step': s_step,
+        's_per_scene': result['runtime'], 'runtime_s': resp['runtime_s']}
 
 
 def random_checkpoint(run: str) -> None:
@@ -1560,7 +1889,7 @@ def main() -> int:
         f'{torch.version.cuda}, {torch.cuda.device_count()} device(s)')
     mode = sys.argv[1:]
     if mode not in ([], ['k3'], ['k2'], ['serve'], ['bf16'],
-                    ['bf16_trunk']):
+                    ['bf16_trunk'], ['host'], ['unet']):
         print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
         return 2
 
@@ -1606,6 +1935,15 @@ def main() -> int:
         phase_train(M, train, val, os.path.join(work, 'run_bf16_trunk'),
                     TRUNK_STEPS, trunk=True, bf16=True)
         return 0
+    if mode == ['host']:
+        phase_host(train, val, card)
+        phase_train_host(M, train, val, work, card)
+        return 0
+    if mode == ['unet']:
+        phase_unet(M, train, val, work, card)
+        return 0
+    host = phase_host(train, val, card)
+    gc.collect()
     train_run = phase_train(M, train, val, run, TRAIN_STEPS)
     gather = phase_window_gather(W, train_run['pipeline'], train_run['size'])
     s_step, k1_launches = train_run['s_step'], \
@@ -1623,6 +1961,7 @@ def main() -> int:
                             TRUNK_STEPS, trunk=True)
     k3_launches = trunk_run['launches']['fused_double_conv_fwd']
     trunk_launches_bwd = trunk_run['launches']['fused_double_conv_bwd']
+    trunk_k1 = trunk_run['launches']['window_gather']
     trunk_s, trunk_peak = trunk_run['s_step'], trunk_run['peak']
     del trunk_run
     gc.collect()
@@ -1636,6 +1975,10 @@ def main() -> int:
         f'{trunk_peak / 2**30:.2f} GiB')
     torch.cuda.empty_cache()
     bf16 = phase_bf16(M, train, val, work, card)
+    train_host = phase_train_host(M, train, val, work, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    unet = phase_unet(M, train, val, work, card)
 
     main_run = phase_main(M, run, val)
     gmm_whole = main_run.pop('gmm')
@@ -1662,7 +2005,13 @@ def main() -> int:
     k2 = phase_kernel(K)
     kern = k2[K2_CASES[0]]
     phase_member_time()
-    phase_breakdown(run, val)
+    phase_breakdown(run, val, host)
+    log(f'host pipeline and U-Net: train_host {train_host["s_step"]:.3f} '
+        f's/step (sampler {train_host["sample_ms"]:.1f} ms, copy '
+        f'{train_host["copy_ms"]:.1f} ms per batch, '
+        f'{train_host["peak"] / 2**30:.2f} GiB); unet {unet["s_step"]:.3f} '
+        f's/step, ESE {unet["s_per_scene"]:.3f} s/scene, served UPR '
+        f'runtime_s {unet["runtime_s"]:.4f} s; card {card}')
     torch.cuda.synchronize()
 
     kernels = [{
@@ -1670,7 +2019,8 @@ def main() -> int:
         'route': 'cuda',
         'source': 'mmlf_tpu_torch/csrc/window_gather.cu',
         'replaces': 'mmlf_tpu/ops/pallas/window_gather.py:94',
-        'launches': k1_launches,
+        # the plain, trunk and U-Net runs (the host run cuts on the host)
+        'launches': k1_launches + trunk_k1 + unet['k1_launches'],
         'max_abs_err': gather['max_abs_err'],
         'ms': gather['ms'],
         'plain_ms': gather['plain_ms'],
@@ -1694,10 +2044,11 @@ def main() -> int:
         'route': 'cuda',
         'source': 'mmlf_tpu_torch/csrc/posterior.cu',
         'replaces': 'mmlf_tpu/ops/pallas/posterior.py:48',
-        # the main path's runs: validate whole and tiled, serve, and the
-        # bf16 checkpoint's validate
+        # the main path's runs: validate whole and tiled, serve, the bf16
+        # checkpoint's validate and the U-Net checkpoint's
         'launches': (main_run['launches'] + tiled_run['launches']
-                     + serve_run['launches'] + bf16_eval['launches']),
+                     + serve_run['launches'] + bf16_eval['launches']
+                     + unet['k2_launches']),
         'max_abs_err': max([r['max_abs_err'] for r in k2.values()]
                            + [main_run['max_abs_err']]),
         'ms': kern['ms'],
@@ -1712,7 +2063,8 @@ def main() -> int:
                               for k in (('fwd', 436), ('bwd', 514))):
         o = (bf16['k3'] if sfx else k3)[kind]
         if sfx:
-            launches = bf16['k3_launches'][kind]
+            launches = bf16['k3_launches'][kind] + \
+                train_host['launches'][f'fused_double_conv_{kind}_bf16']
         else:
             launches = k3_launches if kind == 'fwd' else trunk_launches_bwd
         kernels.append({

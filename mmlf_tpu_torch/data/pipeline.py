@@ -25,13 +25,26 @@ package's documented deviation from the reference; the wrap lands in the
 guard band that the crop discards).
 
 ``gather_windows`` + ``augment_batch`` are the plain per-sample version of
-the same chain, kept as its oracle.  The host pipeline
-(``--host_pipeline``) is not ported; ``TrainPipeline`` holds only the
-scene cache and the position sampler that ``DevicePipeline`` builds on.
+the same chain, kept as its oracle.
+
+The host pipeline (``--host_pipeline``, and the JAX package's automatic
+switch for a scene cache of 8 GiB or more, or scenes of different shapes):
+``TrainPipeline.sample_batch`` draws every random number first, in the JAX
+package's order, then cuts the stride-f windows on the host in a thread
+pool (``native.strided_window`` releases the GIL; ``--train_num_workers
+0`` cuts them in the calling thread) and returns a ``Batch`` of numpy
+arrays equal to ``mmlf_tpu.data.pipeline.TrainPipeline.sample_batch``'s for
+a seed.  ``batch_to_device`` copies it to the card (from pinned host
+memory) and ``augment_host_batch`` augments a whole microbatch at once
+with the gathers of ``data/augment2.py``: the stacks are packed into the
+window layout kernel K1 emits (stack × view × colour on the last axis), so
+the host path and the device path share one augmentation.
 """
 
 from __future__ import annotations
 
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -39,6 +52,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..native import strided_window
 from ..ops.kernels.window_gather import AUX_CH, MPI_CH, window_gather
 from ..ops.shift import shift_lf
 from . import transforms as T
@@ -72,7 +86,8 @@ class DeviceBatch(NamedTuple):
 
 
 class Batch(NamedTuple):
-    """Window stacks on the device (the plain path's layout)."""
+    """Window stacks in the plain path's layout: numpy arrays from the host
+    pipeline's ``sample_batch``, tensors once on the device."""
     h: torch.Tensor          # (b, n, win, win, 3)
     v: torch.Tensor
     i: torch.Tensor
@@ -90,15 +105,19 @@ def window_size(ps: int) -> int:
     return (ps + EXTRA + 2 * GUARD + 15) // 16 * 16
 
 
-def chunk_slice(batch: DeviceBatch, start: int, stop: int) -> DeviceBatch:
-    """Samples ``[start, stop)`` of a batch (one accumulation chunk)."""
+def chunk_slice(batch, start: int, stop: int):
+    """Samples ``[start, stop)`` of a ``DeviceBatch`` or a ``Batch`` (one
+    accumulation chunk: contiguous, as the JAX step reshapes the batch); a
+    field left out (None) stays None."""
     sl = slice(start, stop)
-    return DeviceBatch(batch.scene[sl], batch.factor[sl], batch.ws_y[sl],
-                       batch.ws_x[sl], AugParams(*(a[sl] for a in batch.aug)))
+    aug = AugParams(*(a[sl] for a in batch.aug))
+    return type(batch)(*(None if f is None else f[sl] for f in batch[:-1]),
+                       aug)
 
 
 class TrainPipeline:
-    """The cached (static-shifted) scenes and the window-position sampler."""
+    """The cached (static-shifted) scenes, the window-position sampler and
+    the host batches of ``--host_pipeline``."""
 
     def __init__(self, dataset: HCI4D, cfg: Config, seed: int = 0):
         self.cfg = cfg
@@ -107,6 +126,7 @@ class TrainPipeline:
         self.augment = not cfg.train_no_data_augment
         self.max_f = cfg.train_max_downscale if self.augment else 1
         self.rng = np.random.default_rng(seed)
+        self._pool = None            # the window cutters, started lazily
 
         if not dataset.cache:
             dataset.cache_scenes()
@@ -160,6 +180,111 @@ class TrainPipeline:
         max_off = win - self.ps - EXTRA // 2 - MIN_WRAP_GUARD
         return (ws_y, ws_x, min(int(y112 - ws_y), max_off),
                 min(int(x112 - ws_x), max_off))
+
+    def _aug_params(self, y_offs, x_offs, draw_rot) -> AugParams:
+        """The augmentation parameters of a batch with these crop offsets,
+        drawn from ``self.rng`` in the JAX package's order (``draw_rot(n)``
+        draws the rotations in its place); the identity without
+        augmentation."""
+        b = len(y_offs)
+        if not self.augment:
+            return AugParams(
+                shift=np.zeros(b, np.float32), y_off=y_offs, x_off=x_offs,
+                rot_k=np.zeros(b, np.int32),
+                color=np.broadcast_to(np.eye(3, dtype=np.float32),
+                                      (b, 3, 3)).copy(),
+                brightness=np.ones(b, np.float32),
+                contrast=np.ones(b, np.float32))
+        return AugParams(
+            shift=self.rng.uniform(-1.0, 1.0, b).astype(np.float32),
+            y_off=y_offs, x_off=x_offs, rot_k=draw_rot(b),
+            color=np.stack([T.random_color_matrix(self.rng)
+                            for _ in range(b)]),
+            brightness=(self.rng.uniform(-0.9, 0.9, b)
+                        + 1.0).astype(np.float32),
+            contrast=(self.rng.uniform(-0.9, 0.9, b)
+                      + 1.0).astype(np.float32))
+
+    def _cut_window(self, scene: dict, f: int, ws_y: int, ws_x: int) -> dict:
+        """One stride-f window of every field at a given start (no random
+        draw, so any thread may cut it).  GT and MPI disparities come back
+        divided by ``f``."""
+        win = self.win
+
+        def cut(arr, spatial_from):
+            if spatial_from == 1 and arr.dtype == np.float32 and \
+                    arr.flags.c_contiguous:
+                out = strided_window(arr, ws_y, ws_x, f, win)
+                if out is not None:
+                    return out
+            sl = (slice(None),) * spatial_from + (
+                slice(None, None, f),) * 2
+            sl2 = (slice(None),) * spatial_from + (
+                slice(ws_y, ws_y + win), slice(ws_x, ws_x + win))
+            return np.ascontiguousarray(arr[sl][sl2])
+
+        gt = scene['gt'][::f, ::f]
+        mpi = cut(scene['mpi'], 1).copy()
+        mpi[..., 4] /= np.float32(f)
+        return {'h': cut(scene['h'], 1), 'v': cut(scene['v'], 1),
+                'i': cut(scene['i'], 1), 'd': cut(scene['d'], 1),
+                'gt': np.ascontiguousarray(
+                    gt[ws_y:ws_y + win, ws_x:ws_x + win]) / np.float32(f),
+                'mask': cut(scene['mask'], 0), 'mpi': mpi}
+
+    def close(self) -> None:
+        """Stop the window-cutter threads (a finalizer also does, when the
+        pipeline is collected)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    def sample_batch(self, batch_size: int, pin_memory: bool = False) -> Batch:
+        """A host batch of ``batch_size`` windows and their augmentation
+        parameters, equal field for field to the JAX package's
+        ``TrainPipeline.sample_batch`` for the same generator state.
+
+        Every random number is drawn first, in the JAX package's order; the
+        windows are then cut by ``train_num_workers`` threads (0: in this
+        thread).  ``pin_memory`` stacks the fields into page-locked host
+        memory, for a fast copy to the card."""
+        draws = []
+        for _ in range(batch_size):
+            idx = int(self.rng.integers(0, len(self.scenes)))
+            f = int(self.rng.integers(1, self.max_f + 1))
+            draws.append((idx, f) + self._positions(
+                self.scenes[idx]['gt'].shape, f))
+
+        def cut(draw):
+            idx, f, ws_y, ws_x, _, _ = draw
+            return self._cut_window(self.scenes[idx], f, ws_y, ws_x)
+
+        nw = int(self.cfg.train_num_workers)
+        if batch_size > 1 and nw > 0:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=nw)
+                weakref.finalize(self, self._pool.shutdown, wait=False)
+            windows = list(self._pool.map(cut, draws))
+        else:
+            windows = [cut(d) for d in draws]
+
+        aug = self._aug_params(
+            np.asarray([d[4] for d in draws], np.int32),
+            np.asarray([d[5] for d in draws], np.int32),
+            lambda n: self.rng.integers(0, 4, n).astype(np.int32))
+
+        def stack(key):
+            parts = [w[key] for w in windows]
+            if not pin_memory:
+                return np.stack(parts)
+            out = torch.empty((batch_size,) + parts[0].shape,
+                              dtype=torch.from_numpy(parts[0]).dtype,
+                              pin_memory=True).numpy()
+            return np.stack(parts, out=out)
+
+        return Batch(h=stack('h'), v=stack('v'), i=stack('i'), d=stack('d'),
+                     gt=stack('gt'), mpi=stack('mpi'), mask=stack('mask'),
+                     aug=aug)
 
 
 @dataclass
@@ -342,6 +467,50 @@ def augment_batch(batch: Batch, ps: int):
     return tuple(torch.stack(field) for field in zip(*out))
 
 
+def batch_to_device(batch: Batch, device, with_mpi: bool = True) -> Batch:
+    """A host ``Batch`` on ``device``: the window fields as tensors (MPI
+    only ``with_mpi``, else None), the augmentation parameters left on the
+    host.  Copies from page-locked memory when the batch was sampled with
+    ``pin_memory``; the copy completes before this returns."""
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    return Batch(h=put(batch.h), v=put(batch.v), i=put(batch.i),
+                 d=put(batch.d), gt=put(batch.gt),
+                 mpi=put(batch.mpi) if with_mpi else None,
+                 mask=put(batch.mask), aug=batch.aug)
+
+
+def augment_host_batch(batch: Batch, ps: int):
+    """The augmentation chain of ``augment_batch`` on a whole microbatch of
+    host-cut windows at once (a ``Batch`` of tensors, MPI optional): the
+    stacks are packed into K1's window layout ``(B, win, win, 4·n·3)``
+    (stack × view × colour) and augmented by ``augment2.augment_packed``,
+    gt and mask by ``augment_targets``.  Equal to ``augment_batch`` up to
+    float rounding (the i and d stacks shift rows first, then columns;
+    ``augment_sample`` the other way round).
+
+    :returns: ``(h, v, i, d, gt, mpi, mask)`` with the stacks in the
+        model's folded NCHW layout ``(B, n*3, ps, ps)`` (``folded=True``),
+        MPI ``(B, K, ps, ps, 5)`` or None.
+    """
+    from .augment2 import aug_tensors, augment_packed, augment_targets
+
+    b, n, win = batch.h.shape[:3]
+    img = torch.stack([batch.h, batch.v, batch.i, batch.d], 1)
+    img = img.permute(0, 3, 4, 1, 2, 5).reshape(b, win, win, 4 * n * 3)
+    aux = torch.stack([batch.gt, batch.mask.to(batch.gt.dtype)], -1)
+    mpi = batch.mpi
+    planes = 0 if mpi is None else mpi.shape[1]
+    if mpi is not None:
+        mpi = mpi.permute(0, 2, 3, 1, 4).reshape(b, win, win * planes * 5)
+    aug = aug_tensors(batch.aug, img.device)
+    h, v, i, d = augment_packed(img, aug, ps, n)
+    gt, mpi, mask = augment_targets(aux.reshape(b, win, win * 2), mpi, aug,
+                                    ps, planes)
+    return h, v, i, d, gt, mpi, mask
+
+
 class DevicePipeline(TrainPipeline):
     """Index-only batches for a device cache of the scenes."""
 
@@ -384,28 +553,7 @@ class DevicePipeline(TrainPipeline):
             ws_y[b], ws_x[b], y_offs[b], x_offs[b] = self._positions(
                 self.scene_shape, int(factors[b]))
 
-        b = batch_size
-        if self.augment:
-            aug = AugParams(
-                shift=self.rng.uniform(-1.0, 1.0, b).astype(np.float32),
-                y_off=y_offs, x_off=x_offs,
-                rot_k=self._stratified_rot(b),
-                color=np.stack([T.random_color_matrix(self.rng)
-                                for _ in range(b)]),
-                brightness=(self.rng.uniform(-0.9, 0.9, b)
-                            + 1.0).astype(np.float32),
-                contrast=(self.rng.uniform(-0.9, 0.9, b)
-                          + 1.0).astype(np.float32),
-            )
-        else:
-            aug = AugParams(
-                shift=np.zeros(b, np.float32), y_off=y_offs, x_off=x_offs,
-                rot_k=np.zeros(b, np.int32),
-                color=np.broadcast_to(np.eye(3, dtype=np.float32),
-                                      (b, 3, 3)).copy(),
-                brightness=np.ones(b, np.float32),
-                contrast=np.ones(b, np.float32),
-            )
+        aug = self._aug_params(y_offs, x_offs, self._stratified_rot)
         return DeviceBatch(scene=scene_idx.astype(np.int32),
                            factor=factors.astype(np.int32),
                            ws_y=ws_y, ws_x=ws_x, aug=aug)

@@ -44,7 +44,7 @@ from .ops.shift import shift_lf
 from .utils.device import resolve_device
 from .utils.fold_bn import fold_batchnorm
 from .validate.cli import load_model_state
-from .validate.tiling import receptive_radius, tiled_forward
+from .validate.tiling import UNET_MSG, receptive_radius, tiled_forward
 
 MAGIC = b'MMLFPT01'
 JAX_MAGIC = b'MMLFEXP1'
@@ -62,8 +62,9 @@ def build_inference(output_dir: str, val_ensamble: bool = False,
     As the validate CLI rebuilds it: the stored hyper-parameters win, with
     the disparity range from the arguments, and BatchNorm is folded into
     the convolutions (the stored config then reads
-    ``model_no_batchnorm``).  ``val_ensamble`` runs the shift ensemble,
-    whose ``(K, b, H, W)`` member stacks are kept only with ``members``.
+    ``model_no_batchnorm``), except in a U-Net net.  ``val_ensamble``
+    runs the shift ensemble, whose ``(K, b, H, W)`` member stacks are kept
+    only with ``members``.
     ``u8`` takes raw uint8 stacks and a shift, normalized and shifted on
     the device.  ``calibration`` is the validate CLI's
     ``--val_save_calibration`` payload: its guard scores go into the meta
@@ -76,8 +77,11 @@ def build_inference(output_dir: str, val_ensamble: bool = False,
     kwargs.update({'val_disp_min': val_disp_min,
                    'val_disp_max': val_disp_max})
     cfg = Config.from_dict(kwargs)
-    fold = not cfg.model_no_batchnorm
-    cfg = Config.from_dict({**cfg.to_dict(), 'model_no_batchnorm': True})
+    # the U-Net's BatchNorm is not folded (nor are the streams' then), as
+    # in the JAX package
+    fold = not cfg.model_no_batchnorm and not cfg.model_unet
+    if fold:
+        cfg = Config.from_dict({**cfg.to_dict(), 'model_no_batchnorm': True})
     model = FeedForward.from_config(cfg)      # raises for unported models
     model.load_state_dict(fold_batchnorm(state) if fold else state,
                           strict=True)
@@ -98,6 +102,8 @@ def build_inference(output_dir: str, val_ensamble: bool = False,
             'views': cfg.model_views, 'u8': u8,
             'member_offsets': member_offsets}
     if tiled:
+        if cfg.model_unet:
+            raise ValueError(UNET_MSG)
         halo = receptive_radius(cfg.model_ksize, cfg.model_in_blocks,
                                 cfg.model_out_blocks)
         if val_ensamble:   # the member shift reaches ceil(disp)+1 further

@@ -38,6 +38,11 @@ stats, with ``model_batchnorm_momentum`` as torch's momentum.
 with the same weights, BN buffers and heads; eval keeps the plain path, as
 the JAX package does.
 
+``unet`` (``--model_unet``) replaces the out_net by the U-Net of
+``models/unet.py`` (depth 5, wf 6, padded convs, BatchNorm), named
+``out_net`` as in the reference; ``pallas_trunk`` is then ignored and the
+U-Net does not rematerialize, as in the JAX package.
+
 ``bf16`` (``--bf16``) runs the conv trunk in bfloat16 where the JAX package
 rounds: the stacks are cast at entry, each conv takes bf16 input and bf16
 weights and adds its bias in bf16 after the conv (two roundings, not one
@@ -61,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.batchnorm import BatchNorm2d, recomputing
 from ..ops.codecs import bin_centers, class_to_reg
 from .pallas_trunk import trunk_forward
+from .unet import UNet
 
 
 def laplacian(x: torch.Tensor, mu: torch.Tensor, b: torch.Tensor):
@@ -111,7 +117,8 @@ class FeedForward(nn.Module):
     def __init__(self, ksize: int = 2, in_blocks: int = 3,
                  out_blocks: int = 8, chs: int = 70, views: int = 9,
                  cross: bool = False, uncert: bool = False,
-                 discrete: bool = False, no_batchnorm: bool = False,
+                 discrete: bool = False, unet: bool = False,
+                 no_batchnorm: bool = False,
                  batchnorm_momentum: float = 0.1,
                  disp_min: float = -3.5, disp_max: float = 3.5,
                  pallas_trunk: bool = False, bf16: bool = False,
@@ -124,6 +131,7 @@ class FeedForward(nn.Module):
         self.cross = cross
         self.uncert = uncert
         self.discrete = discrete
+        self.unet = unet
         self.views = views
         self.disp_min = disp_min
         self.disp_max = disp_max
@@ -144,16 +152,20 @@ class FeedForward(nn.Module):
             out_chs = 2
         elif discrete:
             out_chs = self.steps
-        self.out_net = nn.Sequential(
-            *[conv_block(cat_chs, cat_chs, ksize, use_bn,
-                         bn_momentum=batchnorm_momentum)
-              for _ in range(out_blocks - 1)],
-            conv_block(cat_chs, out_chs, ksize, use_bn, out_bn_relu=False))
+        if unet:
+            self.out_net = UNet(cat_chs, out_chs, depth=5, wf=6,
+                                padding=True, batch_norm=True)
+        else:
+            self.out_net = nn.Sequential(
+                *[conv_block(cat_chs, cat_chs, ksize, use_bn,
+                             bn_momentum=batchnorm_momentum)
+                  for _ in range(out_blocks - 1)],
+                conv_block(cat_chs, out_chs, ksize, use_bn,
+                           out_bn_relu=False))
 
     @classmethod
     def from_config(cls, cfg) -> 'FeedForward':
-        for flag, item in (('model_unet', 'models/unet.py'),
-                           ('model_inn', 'the INN'),
+        for flag, item in (('model_inn', 'the INN'),
                            ('model_invertible', 'the INN')):
             if getattr(cfg, flag, False):
                 raise NotImplementedError(
@@ -163,7 +175,7 @@ class FeedForward(nn.Module):
                    out_blocks=cfg.model_out_blocks, chs=cfg.model_chs,
                    views=cfg.model_views, cross=cfg.model_cross,
                    uncert=cfg.model_uncert, discrete=cfg.model_discrete,
-                   no_batchnorm=cfg.model_no_batchnorm,
+                   unet=cfg.model_unet, no_batchnorm=cfg.model_no_batchnorm,
                    batchnorm_momentum=cfg.model_batchnorm_momentum,
                    disp_min=cfg.val_disp_min, disp_max=cfg.val_disp_max,
                    pallas_trunk=cfg.pallas_trunk, bf16=cfg.bf16,
@@ -178,7 +190,8 @@ class FeedForward(nn.Module):
         def fold(s):
             return (s if folded else _fold(s)).to(self.dtype)
 
-        if self.pallas_trunk and self.ksize == 2 and self.training:
+        if self.pallas_trunk and self.ksize == 2 and self.training and \
+                not self.unet:
             stacks = [fold(s) for s in (h_views, v_views)] + (
                 [] if self.cross else [fold(i_views), fold(d_views)])
             output = trunk_forward(self, *stacks).float()
@@ -224,6 +237,8 @@ class FeedForward(nn.Module):
             f_i = net(self.in_net_id, x_i).flip(-1).transpose(2, 3)
             f_d = net(self.in_net_id, fold(d_views))
             feats += [f_i, f_d]
+        if self.unet:
+            return self.out_net(torch.cat(feats, dim=1))
         return net(self.out_net, torch.cat(feats, dim=1))
 
     def _run_net(self, blocks: nn.Sequential, x):
@@ -266,16 +281,21 @@ _TRUNC_STD = 0.87962566103423978
 def init_default_(model: nn.Module, seed: int = 0) -> nn.Module:
     """The JAX package's initial weights, drawn from ``seed``, in place.
 
-    The distributions of ``mmlf_tpu`` (flax): lecun-normal conv kernels
-    (truncated normal, variance 1 / fan_in), zero conv biases, BN scale 1
-    and bias 0, running mean 0 and variance 1.  The draws come from a
-    ``torch.Generator`` seeded with ``seed``, so they are not JAX's bits.
+    The distributions of ``mmlf_tpu`` (flax): lecun-normal conv and
+    transposed-conv kernels (truncated normal, variance 1 / fan_in, the
+    fan-in of a transposed conv its input channels × taps), zero biases,
+    BN scale 1 and bias 0, running mean 0 and variance 1.  The draws come
+    from a ``torch.Generator`` seeded with ``seed``, so they are not JAX's
+    bits.
     """
     gen = torch.Generator(device='cpu').manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             w = torch.empty(m.weight.shape, dtype=torch.float32)
-            std = (1.0 / (w[0].numel())) ** 0.5 / _TRUNC_STD
+            # OIHW, or (in, out, kh, kw) for a transposed conv
+            fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else \
+                w.shape[0] * w.shape[2] * w.shape[3]
+            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
                                   generator=gen)
             m.weight.copy_(w)

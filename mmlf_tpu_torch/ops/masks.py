@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..native import texture_mask as native_texture_mask
+
 
 def create_mask_margin(shape, margin: int = 0, device=None) -> torch.Tensor:
     """Boolean mask with a ``margin``-wide False border on the last two
@@ -43,12 +45,20 @@ def create_mask_texture(center: np.ndarray, wsize: int = 23,
     of its ``wsize``×``wsize`` zero-padded neighbourhood (averaged over
     window positions and the 3 colour channels) must be ``>= threshold``;
     a ``wsize // 2`` margin is additionally masked out.  Runs as an
-    accumulation over window offsets on the host.
+    accumulation over window offsets on the host: in the port's native
+    library (``native.texture_mask``, multithreaded) when it is available,
+    as the JAX package does by default, else in numpy.  The two round the
+    last step differently (``acc * (1/n)`` against ``acc / n``), as the JAX
+    package's two paths do, and each equals its JAX twin bit for bit.
 
     :param center: ``(H, W, 3)`` float32 centre view (channel-last)
     :returns: ``(H, W)`` int32 mask
     """
     center = np.asarray(center, dtype=np.float32)
+    out = native_texture_mask(center, wsize, threshold)
+    if out is not None:
+        return out
+
     h, w, c = center.shape
     r = wsize // 2
 

@@ -38,7 +38,7 @@ from .loop import train
 @click.option('--train_trainset', default='../lf-dataset/additional', help='Location of training dataset')
 @click.option('--train_valset', default='../lf-dataset/training', help='Location of validation dataset')
 @click.option('--train_no_data_augment', is_flag=True, help='Don\'t use any data augmentation?')
-@click.option('--train_num_workers', default=4, help='Number of workers for data loader (kept for flag parity: the device-cache path cuts its windows on the card and ignores it)')
+@click.option('--train_num_workers', default=4, help='Number of workers for data loader (host-pipeline window-cutter threads, 0 = cut in the loop\'s thread; the device-cache path cuts its windows on the card and ignores this)')
 @click.option('--train_lr', default=1e-5, help='Learning rate')
 @click.option('--train_bs', default=1, help='Batch size')
 @click.option('--train_ps', default=32, help='Size of training patches')
@@ -65,7 +65,7 @@ from .loop import train
 @click.option('--train_steps', default=0, help='stop after N steps; 0 = run forever')
 @click.option('--bf16', is_flag=True, help='bfloat16 conv trunk')
 @click.option('--host_pipeline', is_flag=True,
-              help='force host-side window extraction (not ported: raises)')
+              help='force host-side window extraction (the host pipeline)')
 @click.option('--remat', is_flag=True,
               help='rematerialize conv blocks (recompute them in the '
                    'backward; the fused trunk ignores it)')

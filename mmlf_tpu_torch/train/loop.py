@@ -8,7 +8,12 @@ The counterpart of ``mmlf_tpu.train.loop`` (which reproduces the reference
     (``cfg.train_steps`` bounds it);
   * index-only batches from the device-resident scene pyramid
     (``data/pipeline.DevicePipeline``); each microbatch is cut by kernel
-    K1 and augmented on the device (``gather_augment``);
+    K1 and augmented on the device (``gather_augment``).  With
+    ``--host_pipeline``, or when the scene cache would take 8 GiB or more,
+    or the scenes differ in shape (the JAX package's switch), the host
+    pipeline instead: ``TrainPipeline.sample_batch`` cuts the windows on
+    the host, the batch is copied to the card once a step and each
+    microbatch is augmented there at once (``augment_host_batch``);
   * margin-11 train mask, strongest-mode GT, discrete targets and the
     loss-padding masks (``prepare_targets``); head-dependent losses with
     the logvar warm-up and anchor (``compute_loss``);
@@ -37,17 +42,19 @@ Runs on the card by default (``device='cuda'``) in float32 with TF32 off;
 ``--bf16`` runs the conv trunk in bfloat16 (plain or through K3's bf16
 instance under ``--pallas_trunk``), ``--cache_bf16`` keeps the image
 levels of the scene pyramid in bfloat16 (K1 cuts bf16 windows), and
-``--remat`` recomputes the plain trunk's blocks in the backward.
-Not ported (each raises NotImplementedError, naming its ROADMAP.md entry):
-``--mesh_data`` > 1, ``--model_unet``, ``--model_inn``,
-``--host_pipeline`` and the host pipeline that the JAX package switches to
-when the scene cache exceeds 8 GiB or the scene shapes differ.
+``--remat`` recomputes the plain trunk's blocks in the backward
+(``--cache_bf16`` does nothing on the host pipeline, as in the JAX
+package).  ``--model_unet`` replaces the out_net by the U-Net
+(``models/unet.py``); ``--pallas_trunk`` is then ignored, as in the JAX
+package.  Not ported (each raises NotImplementedError, naming its
+ROADMAP.md entry): ``--mesh_data`` > 1 and ``--model_inn``.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import random
 import signal
 import sys
 import threading
@@ -60,7 +67,8 @@ import torch
 
 from ..config import Config
 from ..data.hci4d import HCI4D
-from ..data.pipeline import (DeviceBatch, DevicePipeline, PackedCache,
+from ..data.pipeline import (DevicePipeline, PackedCache, TrainPipeline,
+                             augment_host_batch, batch_to_device,
                              chunk_slice, gather_augment, window_size)
 from ..losses import (improved_multi_uncertainty_l1, improved_uncertainty_l1,
                       logvar_anchor, masked_cross_entropy, masked_l1,
@@ -75,7 +83,7 @@ from .checkpoint import has_checkpoint, load_checkpoint, save_checkpoint
 LOG_HEADER = (f'{"iter":>7}, loss_train,   loss_val,        mse, '
               'badpix_007, time_elapsed')
 NOT_SUPPORTED_MSG = 'INNs are not supported anymore'
-# the JAX package trains from its host pipeline above this cache size
+# the JAX package trains from its host pipeline from this cache size on
 DEVICE_CACHE_LIMIT = 8 << 30
 
 
@@ -90,11 +98,8 @@ def check_ported(cfg: Config) -> None:
     if cfg.model_invertible:
         raise NotImplementedError(NOT_SUPPORTED_MSG)
     for flag, on, item in (
-            ('--host_pipeline', cfg.host_pipeline,
-             'Queue 1 item 11: training options'),
             ('--mesh_data > 1', cfg.mesh_data > 1,
              'Queue 1 item 4: data parallel'),
-            ('--model_unet', cfg.model_unet, 'Queue 1 item 5: U-Net'),
             ('--model_inn', cfg.model_inn, 'Queue 1 item 7: the INN')):
         if on:
             raise _not_ported(flag, item)
@@ -215,15 +220,23 @@ def check_accum(cfg: Config) -> None:
             'different count than the main loss')
 
 
-def microbatch_loss(cfg: Config, model: FeedForward, cache: PackedCache,
-                    chunk: DeviceBatch, step: int):
-    """Input path + forward + loss of one microbatch.  Returns ``(loss,
-    mask count)``; the caller runs the backward."""
-    # MPI windows are only cut when a loss reads them
-    with_mpi = bool(cfg.train_loss_multimodal or cfg.train_loss_strongest)
-    h, v, i, d, gt, mpi, mask = gather_augment(
-        cache, chunk, cfg.train_ps, window_size(cfg.train_ps),
-        with_mpi=with_mpi)
+def with_mpi(cfg: Config) -> bool:
+    """MPI windows are only cut and copied when a loss reads them."""
+    return bool(cfg.train_loss_multimodal or cfg.train_loss_strongest)
+
+
+def microbatch_loss(cfg: Config, model: FeedForward,
+                    cache: Optional[PackedCache], chunk, step: int):
+    """Input path + forward + loss of one microbatch: a ``DeviceBatch`` cut
+    from ``cache`` by K1, or (no cache) a host ``Batch`` already on the
+    device.  Returns ``(loss, mask count)``; the caller runs the
+    backward."""
+    if cache is None:
+        h, v, i, d, gt, mpi, mask = augment_host_batch(chunk, cfg.train_ps)
+    else:
+        h, v, i, d, gt, mpi, mask = gather_augment(
+            cache, chunk, cfg.train_ps, window_size(cfg.train_ps),
+            with_mpi=with_mpi(cfg))
     gt, mpi, gt_classes, mask, mask_padding = prepare_targets(cfg, gt, mpi,
                                                               mask)
     output = model(h, v, i, d, folded=True)
@@ -232,16 +245,17 @@ def microbatch_loss(cfg: Config, model: FeedForward, cache: PackedCache,
     return loss, torch.sum(mask).float()
 
 
-def train_step(cfg: Config, model: FeedForward, optimizer, cache,
-               batch: DeviceBatch, step: int,
-               bn_train: bool = True) -> torch.Tensor:
-    """One optimizer step over ``batch`` (``train_accum`` microbatches).
-    ``bn_train=False`` is ``--train_eval_mode`` (running statistics, no
-    updates).  Returns the step's loss as a 0-d device tensor."""
+def train_step(cfg: Config, model: FeedForward, optimizer, cache, batch,
+               step: int, bn_train: bool = True) -> torch.Tensor:
+    """One optimizer step over ``batch`` (``train_accum`` microbatches): a
+    ``DeviceBatch`` of ``cache``, or a host ``Batch`` on the device when
+    ``cache`` is None.  ``bn_train=False`` is ``--train_eval_mode``
+    (running statistics, no updates).  Returns the step's loss as a 0-d
+    device tensor."""
     check_accum(cfg)
     accum = max(1, int(cfg.train_accum))
     exact = bool(cfg.train_accum_exact) and accum > 1
-    n = len(batch.scene)
+    n = len(batch.aug.shift)
     if n % accum:
         raise ValueError(f'batch {n} does not split into {accum} '
                          f'microbatches')
@@ -320,20 +334,26 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
     rng_seed = cfg.train_seed if resume_i == 0 else int(
         np.random.SeedSequence([cfg.train_seed, resume_i])
         .generate_state(1)[0])
+    # the transforms library draws from the stdlib and numpy globals;
+    # pinned, as the JAX package pins them, so --train_seed reproduces a
+    # run (the pipelines draw from their own seeded generator)
+    random.seed(rng_seed)
+    np.random.seed(rng_seed)
 
     trainset = HCI4D(cfg.train_trainset, cache=True, length=4096)
+    # the device-resident pyramid unless forced off, too large or ragged
     scene_bytes = sum(
         sum(a.nbytes for a in (d[0], d[1], d[2], d[3], d[5], d[6], d[7]))
         for d in trainset.data)
-    if scene_bytes >= DEVICE_CACHE_LIMIT:
-        raise _not_ported(f'a scene cache of {scene_bytes / 2**30:.1f} GiB '
-                          f'(the host pipeline)',
-                          'Queue 1 item 11: training options')
-    if len({d[5].shape for d in trainset.data}) != 1:
-        raise _not_ported('scenes of different shapes (the host pipeline)',
-                          'Queue 1 item 11: training options')
-    pipeline = DevicePipeline(trainset, cfg, seed=rng_seed, device=dev)
-    cache = pipeline.cache
+    use_device_cache = not cfg.host_pipeline and \
+        scene_bytes < DEVICE_CACHE_LIMIT and \
+        len({d[5].shape for d in trainset.data}) == 1
+    if use_device_cache:
+        pipeline = DevicePipeline(trainset, cfg, seed=rng_seed, device=dev)
+        cache = pipeline.cache
+    else:
+        pipeline = TrainPipeline(trainset, cfg, seed=rng_seed)
+        cache = None
     # no transform: in-train validation feeds UNSHIFTED scenes even when
     # train_shift != 0, like the reference and the JAX package
     valset = HCI4D(cfg.train_valset, cache=True)
@@ -408,7 +428,13 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
 
     try:
         while True:
-            batch = pipeline.sample_batch(cfg.train_bs)
+            if cache is None:
+                batch = batch_to_device(
+                    pipeline.sample_batch(cfg.train_bs,
+                                          pin_memory=dev.type == 'cuda'),
+                    dev, with_mpi(cfg))
+            else:
+                batch = pipeline.sample_batch(cfg.train_bs)
             eval_mode = cfg.train_eval_mode and i >= cfg.train_eval_mode_start
             if cfg.train_profile and i == 10:
                 profiler = _start_profiler(dev)
@@ -457,6 +483,7 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
         while pending:
             emit_row(pending.popleft())
     finally:
+        pipeline.close()
         if profiler is not None:
             _stop_profiler(profiler, output_dir, dev)
         if term_event is not None:

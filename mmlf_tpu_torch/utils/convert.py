@@ -10,11 +10,25 @@ the JAX package's variable tree onto the same keys:
   ``batch_stats/in_net_hv/block<b>/bn`` → ``in_net_hv.<b>.3`` (BatchNorm)
   ``in_net_id``, ``out_net``            → likewise
 
-Conv kernels transpose HWIO → OIHW.  Input-channel order is the same
-(view-major, colour-minor) in both packages.  The leaves may be numpy or
-JAX arrays: a JAX train state's ``params`` and ``batch_stats`` convert as
-they are, and so does a gradient tree shaped like ``params`` (pass it as
-``params`` with the state's ``batch_stats``).
+and, for a ``--model_unet`` net, the U-Net out_net (``models/unet.py``;
+``out_net.`` before each key on the right):
+
+  ``params/out_net/down<i>/conv{0,1}``  → ``down_path.<i>.block.{0,3}``
+  ``params/out_net/down<i>/bn{0,1}`` +
+  ``batch_stats/…``                     → ``down_path.<i>.block.{2,5}``
+  ``params/out_net/up<i>/up``           → ``up_path.<j>.up``
+  ``params/out_net/up<i>/conv_block/…`` → ``up_path.<j>.conv_block.…``
+  ``params/out_net/last``               → ``last``
+
+with ``j = depth - 2 - i``.  Conv kernels transpose HWIO → OIHW; a
+transposed conv's kernel (flax ``ConvTranspose``, HWIO) also flips its
+taps, because flax correlates the dilated input with the kernel where
+torch scatters with it, and transposes to torch's ``(in, out, kH, kW)``.
+Input-channel order is the same (view-major, colour-minor) in both
+packages.  The leaves may be numpy or JAX arrays: a JAX train state's
+``params`` and ``batch_stats`` convert as they are, and so does a gradient
+tree shaped like ``params`` (pass it as ``params`` with the state's
+``batch_stats``).
 """
 
 from __future__ import annotations
@@ -30,17 +44,56 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
+def _conv(conv: dict) -> tuple:
+    """flax HWIO conv → OIHW weight and bias."""
+    return (_tensor(np.transpose(np.asarray(conv['kernel']), (3, 2, 0, 1))),
+            _tensor(conv['bias']))
+
+
+def _conv_transpose(conv: dict) -> tuple:
+    """flax ``ConvTranspose`` HWIO → torch ``ConvTranspose2d`` ``(in, out,
+    kH, kW)``: the taps flipped, then transposed."""
+    k = np.asarray(conv['kernel'])[::-1, ::-1]
+    return _tensor(np.transpose(k, (2, 3, 0, 1))), _tensor(conv['bias'])
+
+
+def _unet_state(params: dict, stats: dict, sd: dict,
+                prefix: str = 'out_net.',
+                depth: int = 5) -> None:
+    """The JAX U-Net's variables into ``sd`` under the reference's keys."""
+    def block(p: dict, s: dict, pfx: str) -> None:
+        for conv, bn, ci, bi in (('conv0', 'bn0', 0, 2),
+                                 ('conv1', 'bn1', 3, 5)):
+            sd[f'{pfx}.{ci}.weight'], sd[f'{pfx}.{ci}.bias'] = _conv(p[conv])
+            sd[f'{pfx}.{bi}.weight'] = _tensor(p[bn]['scale'])
+            sd[f'{pfx}.{bi}.bias'] = _tensor(p[bn]['bias'])
+            sd[f'{pfx}.{bi}.running_mean'] = _tensor(s[bn]['mean'])
+            sd[f'{pfx}.{bi}.running_var'] = _tensor(s[bn]['var'])
+            sd[f'{pfx}.{bi}.num_batches_tracked'] = torch.tensor(
+                0, dtype=torch.int64)
+
+    for i in range(depth):
+        block(params[f'down{i}'], stats[f'down{i}'],
+              f'{prefix}down_path.{i}.block')
+    for j in range(depth - 1):
+        i = depth - 2 - j
+        up = params[f'up{i}']
+        sd[f'{prefix}up_path.{j}.up.weight'], \
+            sd[f'{prefix}up_path.{j}.up.bias'] = _conv_transpose(up['up'])
+        block(up['conv_block'], stats[f'up{i}']['conv_block'],
+              f'{prefix}up_path.{j}.conv_block.block')
+    sd[f'{prefix}last.weight'], sd[f'{prefix}last.bias'] = _conv(
+        params['last'])
+
+
 def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
     """``{'params', 'batch_stats'}`` of ``mmlf_tpu.models.FeedForward``
     (numpy leaves) → the port's state dict.
 
-    :param cfg: a ``Config`` (or its dict) with the block counts and
-        ``model_cross``
+    :param cfg: a ``Config`` (or its dict) with the block counts,
+        ``model_cross`` and ``model_unet``
     """
     cfg = cfg if isinstance(cfg, dict) else cfg.to_dict()
-    if cfg.get('model_unet'):
-        raise NotImplementedError('U-Net weights are not ported yet '
-                                  '(ROADMAP.md, Queue 1: models/unet.py)')
     if cfg.get('model_inn'):
         raise NotImplementedError('INN weights are not ported yet '
                                   '(ROADMAP.md, Queue 1: the INN)')
@@ -52,10 +105,8 @@ def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
         for b in range(n_blocks):
             blk = params[name][f'block{b}']
             for conv, idx in (('conv1', 0), ('conv2', 2)):
-                kernel = np.transpose(np.asarray(blk[conv]['kernel']),
-                                      (3, 2, 0, 1))
-                sd[f'{name}.{b}.{idx}.weight'] = _tensor(kernel)
-                sd[f'{name}.{b}.{idx}.bias'] = _tensor(blk[conv]['bias'])
+                sd[f'{name}.{b}.{idx}.weight'], \
+                    sd[f'{name}.{b}.{idx}.bias'] = _conv(blk[conv])
             if 'bn' in blk:
                 bn_s = stats[name][f'block{b}']['bn']
                 sd[f'{name}.{b}.3.weight'] = _tensor(blk['bn']['scale'])
@@ -68,7 +119,10 @@ def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
     export_net('in_net_hv', cfg['model_in_blocks'])
     if not cfg.get('model_cross', False):
         export_net('in_net_id', cfg['model_in_blocks'])
-    export_net('out_net', cfg['model_out_blocks'])
+    if cfg.get('model_unet'):
+        _unet_state(params['out_net'], stats['out_net'], sd)
+    else:
+        export_net('out_net', cfg['model_out_blocks'])
     return sd
 
 

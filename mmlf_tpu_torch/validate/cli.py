@@ -30,8 +30,9 @@ into the float32 weights first (as ``mmlf_tpu.validate.cli``); the
 posterior kernel and the metrics stay float32.  Reads the JAX package's
 ``checkpoint.msgpack`` (with its ``hyper_parameters.json``) first, as
 ``mmlf_tpu.validate.cli`` does, else a reference-format ``checkpoint.pt``.
-Not ported yet (each raises NotImplementedError): ``--mesh_space``,
-``--mesh_ensemble``, U-Net / INN / invertible checkpoints.
+A ``--model_unet`` checkpoint runs with its BatchNorm unfolded, as in the
+JAX package.  Not ported yet (each raises NotImplementedError):
+``--mesh_space``, ``--mesh_ensemble``, INN / invertible checkpoints.
 ``--jax_cache`` has no counterpart: nothing is compiled per scene here.
 """
 
@@ -60,7 +61,7 @@ from ..utils.device import resolve_device
 from ..utils.fold_bn import fold_batchnorm
 from . import calibrate
 from . import posteriors as P
-from .tiling import receptive_radius, tiled_forward
+from .tiling import UNET_MSG, receptive_radius, tiled_forward
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -203,12 +204,15 @@ def run_validation(output_dir, dataset, model_discrete=False,
                    'val_disp_max': val_disp_max,
                    'train_shift': train_shift})
     cfg = Config.from_dict(kwargs)
+    if val_tile > 0 and cfg.model_unet:
+        raise click.UsageError(UNET_MSG)
 
     transform = T.Shift(float(kwargs['train_shift']))
     valset = HCI4D(dataset, transform=transform)
 
-    # inference is eval-mode only: fold BatchNorm into the convolutions
-    fold = not cfg.model_no_batchnorm
+    # inference is eval-mode only: fold BatchNorm into the convolutions,
+    # except in a U-Net net (not foldable), as the JAX package does
+    fold = not cfg.model_no_batchnorm and not cfg.model_unet
     if fold:
         cfg = Config.from_dict({**cfg.to_dict(), 'model_no_batchnorm': True})
     model = FeedForward.from_config(cfg)      # raises for unported models

@@ -32,6 +32,13 @@ import numpy as np
 import torch
 
 
+UNET_MSG = ('tiling a U-Net checkpoint is not supported: the U-Net\'s 2x2 '
+            'max-pools floor a window whose side is not a multiple of 16 and '
+            'its receptive field exceeds the halo (the JAX package fails '
+            'here too: its validate CLI raises, its tiled artifact cannot '
+            'serve)')
+
+
 def receptive_radius(ksize: int, in_blocks: int, out_blocks: int) -> int:
     """Upper bound on the one-sided receptive field of the conv trunk.
 

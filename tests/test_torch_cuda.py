@@ -625,3 +625,120 @@ def test_remat_on_card(cuda, bf16):
         assert torch.equal(b, c), name
     for (name, p), q in zip(model.named_parameters(), ref.parameters()):
         assert torch.equal(p.grad, q.grad), name
+
+
+# ----------------------------------------------- host runtime and U-Net
+
+
+def test_host_library_mask_and_windows():
+    """The port's host library (g++ at first use, under build/) against
+    its numpy fallbacks on this machine: the texture mask of a random and
+    of a flat scene (equal), and ``strided_window`` at f = 1..4 (equal).
+    Needs g++, not a card."""
+    import os
+    from mmlf_tpu_torch import native
+    from mmlf_tpu_torch.ops.masks import create_mask_texture
+
+    native.reset()
+    path = native.build()
+    assert native.get_lib() is not None and native.loaded_path() == path
+    rng = np.random.default_rng(0)
+    center = rng.random((160, 144, 3), dtype=np.float32)
+    center[30:90, 40:100] = 0.5
+    want = create_mask_texture(center)
+    os.environ[native.DISABLE_ENV] = '1'
+    native.reset()
+    try:
+        assert native.get_lib() is None
+        np.testing.assert_array_equal(create_mask_texture(center), want)
+    finally:
+        del os.environ[native.DISABLE_ENV]
+        native.reset()
+    src = rng.random((9, 131, 97, 3), dtype=np.float32)
+    for f in (1, 2, 3, 4):
+        got = native.strided_window(src, 2, 1, f, 20)
+        np.testing.assert_array_equal(
+            got, src[:, ::f, ::f][:, 2:22, 1:21])
+
+
+@pytest.mark.parametrize('train', [False, True], ids=['eval', 'train'])
+def test_unet_forward_on_card_matches_cpu(cuda, train):
+    """``FeedForward(model_unet)`` (the full U-Net, depth 5, wf 6) on the
+    card (cuDNN convs and transposed convs, TF32 off) against the CPU from
+    the same weights: eval outputs within 1e-4 of their max, train-mode
+    outputs (batch statistics at 3x3 at the bottom) within 1e-3."""
+    cfg = Config(model_chs=8, model_views=9, model_in_blocks=1,
+                 model_out_blocks=2, model_uncert=True,
+                 model_unet=True).finalize()
+    model = init_live_(FeedForward.from_config(cfg), seed=5).train(train)
+    rng = np.random.default_rng(6)
+    stacks = [torch.from_numpy(rng.random((2, 9, 48, 48, 3),
+                                          dtype=np.float32))
+              for _ in range(4)]
+    with torch.no_grad():
+        want = model(*stacks)
+        got = model.to(cuda)(*[s.to(cuda) for s in stacks])
+    tol = 1e-3 if train else 1e-4
+    for key in ('mean', 'logvar'):
+        scale = float(want[key].abs().max())
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
+                                   atol=tol * scale, msg=key)
+
+
+def test_host_pipeline_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One train step on the host pipeline (accum 2): the batch sampled
+    into pinned memory and copied to the card, augmented there at once;
+    K1 never launches.  The loss within 1e-4 of the CPU's, and each
+    gradient leaf within 1e-2 of the CPU's in relative L2 norm, and no
+    further from the float64 step on the CPU than 1e-2 plus the CPU's own
+    float32 distance from it: a relu' that flips on a pre-activation
+    within rounding of zero moves a leaf's element by a visible share of
+    its max under train-mode BatchNorm, on either device."""
+    from mmlf_tpu_torch.data.hci4d import HCI4D
+    from mmlf_tpu_torch.data.pipeline import TrainPipeline, batch_to_device
+    from mmlf_tpu_torch.data.synth import generate_dataset
+    from mmlf_tpu_torch.models.feed_forward import init_default_
+    from mmlf_tpu_torch.train import loop
+
+    root = str(tmp_path / 'data')
+    generate_dataset(root, scenes=1, size=128, seed=0)
+    cfg = Config(train_trainset=root, train_bs=8, train_ps=32,
+                 train_lr=1e-3, train_max_downscale=2, train_accum=2,
+                 model_chs=8, model_in_blocks=1, model_out_blocks=2,
+                 model_uncert=True, host_pipeline=True).finalize()
+    results = {}
+    for name, dev, dtype in (('cpu', 'cpu', torch.float32),
+                             ('f64', 'cpu', torch.float64),
+                             ('card', cuda, torch.float32)):
+        pipe = TrainPipeline(HCI4D(root, cache=True), cfg, seed=3)
+        batch = pipe.sample_batch(8, pin_memory=name == 'card')
+        pipe.close()
+        if name == 'card':
+            assert torch.from_numpy(batch.h).is_pinned()
+        model = init_default_(FeedForward.from_config(cfg), 0).to(dev,
+                                                                   dtype)
+        model.dtype = dtype
+        opt = loop.make_optimizer(model)
+        before = W.window_gather.launches
+        dev_batch = batch_to_device(batch, dev, with_mpi=False)
+        dev_batch = dev_batch._replace(**{
+            k: getattr(dev_batch, k).to(dtype) for k in
+            ('h', 'v', 'i', 'd', 'gt')})
+        loss = loop.train_step(cfg, model, opt, None, dev_batch, 5)
+        assert W.window_gather.launches == before
+        results[name] = (float(loss), {n: p.grad.double().cpu() for n, p in
+                                       model.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results['cpu'], results['card']
+    g64 = results['f64'][1]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    for name in g_cpu:
+        if name.endswith('.2.bias'):
+            continue         # a conv bias ahead of a train-mode BN: zero
+        assert l2(g_gpu[name], g_cpu[name]) <= 1e-2, (
+            name, l2(g_gpu[name], g_cpu[name]), l2(g_cpu[name], g64[name]))
+        assert l2(g_gpu[name], g64[name]) <= \
+            1e-2 + l2(g_cpu[name], g64[name]), name

@@ -289,8 +289,10 @@ def test_export_guards(ckpt, tmp_path):
         fn_u8(*_stacks(32), 0.0)
 
 
+# the U-Net exports (tests/test_torch_unet.py); its case is now the
+# invertible net, which still raises
 @pytest.mark.parametrize('flag,item', [('model_inn', 'the INN'),
-                                       ('model_unet', 'models/unet.py')])
+                                       ('model_invertible', 'the INN')])
 def test_unported_checkpoints_raise(tmp_path, flag, item):
     path = write_checkpoint(str(tmp_path))
     state = torch.load(os.path.join(path, 'checkpoint.pt'),

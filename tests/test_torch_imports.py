@@ -19,10 +19,13 @@ import mmlf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mmlf_tpu_torch.__path__,
                                                'mmlf_tpu_torch.')]
 assert {'mmlf_tpu_torch.validate.tiling', 'mmlf_tpu_torch.export',
-        'mmlf_tpu_torch.serve', 'mmlf_tpu_torch.utils.msgpack'} <= set(names)
+        'mmlf_tpu_torch.serve', 'mmlf_tpu_torch.utils.msgpack',
+        'mmlf_tpu_torch.native', 'mmlf_tpu_torch.models.unet',
+        'mmlf_tpu_torch.data.transforms'} <= set(names)
 for name in names:
     importlib.import_module(name)
 from mmlf_tpu_torch.ops.kernels import build
+from mmlf_tpu_torch import native
 bad = sorted(k for k in sys.modules
              if k in ('jax', 'flax', 'optax', 'msgpack', 'triton',
                       'mmlf_tpu')
@@ -30,6 +33,7 @@ bad = sorted(k for k in sys.modules
                               'mmlf_tpu.')))
 assert not bad, bad
 assert build.load.cache_info().currsize == 0, 'a kernel was loaded'
+assert not native._Loaded.tried, 'the host library was loaded at import'
 print(len(names))
 '''
 
@@ -39,7 +43,7 @@ def test_port_imports_no_jax_or_mmlf_tpu():
     proc = subprocess.run([sys.executable, '-c', _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 41
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 43
 
 
 # an import of jax/flax/optax/msgpack/mmlf_tpu (not mmlf_tpu_torch), in
@@ -62,7 +66,7 @@ def test_sources_have_no_forbidden_imports():
                     text = fh.read()
                 assert not _FORBIDDEN.search(text), os.path.join(root, f)
                 scanned += 1
-    assert scanned >= 42
+    assert scanned >= 44
     for script in ('chip_smoke.py', 'k3_variants.py'):
         with open(os.path.join(REPO, script)) as fh:
             assert not _FORBIDDEN.search(fh.read()), script

@@ -240,6 +240,6 @@ def test_bf16_run_dir_raises_with_its_item(jax_run, tmp_path):
     with open(path) as f:
         hyper = json.load(f)
     with open(path, 'w') as f:
-        json.dump(dict(hyper, model_unet=True), f)
-    with pytest.raises(NotImplementedError, match='models/unet.py'):
+        json.dump(dict(hyper, model_inn=True), f)
+    with pytest.raises(NotImplementedError, match='the INN'):
         run_validation(dirs[1], data, device='cpu')

@@ -371,15 +371,21 @@ def test_accum_exact_guards():
     loop.check_accum(Config(**base).finalize())
 
 
-# the bf16, cache_bf16 and remat cases pair each (ported) flag with one
-# that still raises: the run stops at the unported one
+# the pallas_trunk, bf16, cache_bf16, remat, host_pipeline and model_unet
+# cases pair each (ported) flag with one that still raises: the run stops
+# at the unported one (the host pipeline and the U-Net run in
+# tests/test_torch_host_pipeline.py and tests/test_torch_unet.py)
 @pytest.mark.parametrize('kw,match', [
-    ({'pallas_trunk': True, 'model_unet': True}, 'ROADMAP'),
-    ({'bf16': True, 'host_pipeline': True}, 'item 11'),
-    ({'cache_bf16': True, 'host_pipeline': True}, 'item 11'),
+    ({'pallas_trunk': True, 'model_unet': True, 'model_inn': True},
+     'item 7'),
+    ({'bf16': True, 'host_pipeline': True, 'mesh_data': 2}, 'item 4'),
+    ({'cache_bf16': True, 'host_pipeline': True, 'model_inn': True},
+     'item 7'),
     ({'remat': True, 'mesh_data': 2}, 'item 4'),
-    ({'host_pipeline': True}, 'ROADMAP'), ({'mesh_data': 2}, 'ROADMAP'),
-    ({'model_unet': True}, 'ROADMAP'), ({'model_inn': True}, 'ROADMAP'),
+    ({'host_pipeline': True, 'mesh_data': 2}, 'ROADMAP'),
+    ({'mesh_data': 2}, 'ROADMAP'),
+    ({'model_unet': True, 'mesh_data': 2}, 'ROADMAP'),
+    ({'model_inn': True}, 'ROADMAP'),
     ({'model_invertible': True}, 'INNs are not supported')])
 def test_unported_flags_raise(tmp_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):
