@@ -12,6 +12,14 @@
                                    # train_bf16_trunk (7d) only
     python3 chip_smoke.py host     # card, build, data, host, train_host
     python3 chip_smoke.py unet     # card, build, data and unet
+    python3 chip_smoke.py dp       # card, build, data and dp
+    python3 chip_smoke.py probes   # card, build and probes
+    python3 chip_smoke.py dp4      # four cards: card, build, data and dp
+                                   # on 4 NCCL ranks, one a card, through
+                                   # the CLI's own --mesh_data path
+    python3 chip_smoke.py k1       # card, build, data and phase K1 twice
+                                   # on the recipe's device cache (no
+                                   # train run)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -86,6 +94,21 @@ Phases, in order; any failure exits non-zero and prints no result:
              (whole scene, K2 once); one exported UPR artifact served over
              HTTP, its mean within SERVE_TOL of the direct eval forward's;
              prints s/step, s/scene, runtime_s and peak memory;
+7h. dp     — the recipe with ``--pallas_trunk --mesh_data 2`` through the
+             library API (``train_ranks``) for DP_STEPS steps on two gloo
+             ranks that share the card (NCCL refuses two ranks on one
+             device), full width; each rank reports the launches it counted
+             (K1 and K3 on its half of every microbatch); then the same on
+             one rank from the same seed: losses within DP_LOSS_REL, BN
+             running statistics within DP_STATS_REL; s/step printed, but it
+             is no scaling number (both ranks share one card);
+7i. probes — the probe scripts' kernels (``mmlf_tpu_torch/probes``): the
+             fused block's check (fp32, K3's fused-block configuration) and
+             one block against float64, the bench (bf16, B 64, 96², C 280
+             and 256, 7 blocks) with its first blocks as ``k3_bf16_check``,
+             and the window copies of probe3 and probe4 (the row copy and
+             the two-slot ring), bit for bit against advanced indexing;
+             times, plain versions', bounds and the library calls';
 8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
@@ -124,7 +147,8 @@ The weights start random (seeded) and train a few steps, so the accuracy
 numbers printed mean nothing; the run shows that the port builds, agrees
 with its plain versions and runs the main path's train step (plain and
 ``--pallas_trunk``, each in float32 and in bfloat16), its validation and
-its serving on the card.
+its serving on the card, data parallel over two ranks, and the probe
+scripts' kernels.
 Imports nothing of JAX or of mmlf_tpu.
 """
 
@@ -143,10 +167,10 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE = 512
 TRAIN_SCENES = 4
-TRAIN_STEPS = 4
-TRUNK_STEPS = 4
+TRAIN_STEPS = 3
+TRUNK_STEPS = 3
 # steps of phase unet (the recipe with --model_unet)
-UNET_STEPS = 4
+UNET_STEPS = 3
 # the recipe's trunk blocks per microbatch: 4 streams x 3 blocks + 8 out_net
 TRUNK_BLOCKS = 4 * 3 + 8
 # the README UPR recipe (bs 512 as 8 microbatches of 64)
@@ -228,6 +252,15 @@ K3_BLOCKS = [((27, 70, False, False), 4), ((70, 70, True, True), 8),
              ((280, 108, True, True), 0)]
 # ragged (B, H, W) of K3's bf16 backward check (k3_bf16_ragged)
 K3_RAGGED = [(3, 13, 17), (3, 12, 14)]
+# timed calls of each chain of the fused-block probe's bench (phase probes)
+PROBE_REPS = 5
+# phase dp: ranks sharing the card, steps, and the tolerances of the ranks'
+# losses and BN running statistics against one rank's
+# (tests/test_torch_parallel.py's)
+DP_RANKS = 2
+DP_STEPS = 2
+DP_LOSS_REL = 1e-5
+DP_STATS_REL = 1e-4
 
 
 def log(*args):
@@ -279,18 +312,10 @@ def conv_flop_per_pixel() -> int:
 
 def counters(M) -> dict:
     """Every kernel instance of the port, by name: ``(wrapper, count
-    attribute)`` (float32 instances count in ``.launches``, bfloat16 ones
-    in ``.launches_bf16``)."""
-    return {'window_gather': (M.W.window_gather, 'launches'),
-            'window_gather_bf16': (M.W.window_gather, 'launches_bf16'),
-            'fused_double_conv_fwd': (M.C.fused_double_conv_fwd, 'launches'),
-            'fused_double_conv_bwd': (M.C.fused_double_conv_bwd, 'launches'),
-            'fused_double_conv_fwd_bf16': (M.C.fused_double_conv_fwd,
-                                           'launches_bf16'),
-            'fused_double_conv_bwd_bf16': (M.C.fused_double_conv_bwd,
-                                           'launches_bf16'),
-            'laplace_mixture_posterior': (M.K.laplace_mixture_posterior,
-                                          'launches')}
+    attribute)``, from the port's registry (``ops/kernels.COUNTERS``;
+    float32 instances count in ``.launches``, bfloat16 ones in
+    ``.launches_bf16``)."""
+    return M.counters()
 
 
 def reset_launches(M) -> None:
@@ -1844,6 +1869,281 @@ def phase_unet(M, train: str, val: str, work: str, card: str) -> dict:
         's_per_scene': result['runtime'], 'runtime_s': resp['runtime_s']}
 
 
+def probe_block_bound(b, h, w, c, n_blocks, peak, eb, m):
+    """Least time of ``n_blocks`` chained fused blocks of the probe:
+    operations by the script's count (conv 1 over H×W, not (H+1)×(W+1):
+    ``n·2·B·H·W·4·C²·2``) at ``peak``, against bytes (the input canvas
+    read once, the y1 and y2 canvases of the last block written once,
+    ``eb`` bytes an element, and the weights)."""
+    ops = n_blocks * 2 * b * h * w * 4 * c * c * 2
+    n_bytes = eb * (3 * b * c * m + n_blocks * 8 * c * c) + \
+        4 * n_blocks * 2 * c
+    t_ops, t_bytes = ops / peak, n_bytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def phase_probes(M, card: str) -> list:
+    """The probe scripts' kernels (``mmlf_tpu_torch/probes``), each path
+    read with the counts set to 0 just before it: the fused block's
+    ``check`` (fp32, B 2, 13×17, C 24, 2 blocks, K3's fp32 instance) and one
+    such block against a float64 evaluation (within K3_PREC_FACTOR x the
+    fp32 plain version's error) and timed; ``bench`` (bf16, B 64, 96², C 280
+    and 256, 7 blocks: the chain through K3's bf16 instance, with and
+    without the canvas transposes, through its plain version and cuDNN's
+    direct chain), then the first block of each C held as
+    ``k3_bf16_check``; the window copies of probe3 (27 channels, 4-byte
+    words) and probe4 (128 channels, 16-byte words and the two-slot ring),
+    each equal to the indexed windows bit for bit, timed beside the plain
+    copy and one advanced-indexing call.  Returns the kernels-line
+    entries."""
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.probes import block_probe as BP
+    from mmlf_tpu_torch.probes import gather_probe as GP
+
+    entries = []
+    t0 = time.time()
+    # --- fused block, fp32, the script's check
+    reset_launches(M)
+    BP.check('cuda')
+    torch.cuda.synchronize()
+    launches = read_launches(M)
+    if launches != expected(M, fused_block_fwd=2):
+        raise AssertionError(f'probe check launches {launches}')
+    h, w, c, b = 13, 17, 24, 2
+    rng = np.random.default_rng(0)
+    p = BP.make_params(rng, 1, c, torch.float32, 'cuda')[0]
+    x = torch.as_tensor(rng.standard_normal((b, h, w, c)) * 0.5,
+                        dtype=torch.float32, device='cuda')
+    m = BP.canvas_dims(h, w)[3]
+    xc = BP.to_canvas(x, m)
+    got = BP.defined(*BP.fused_block(xc, *p, h, w), h, w)
+    plain = BP.defined(*BP.plain_fused_block(xc, *p, h, w), h, w)
+    ref = BP.defined(*BP.block_on_canvas(
+        M.C.plain_fused_block, xc, *(a.double() for a in p), h, w), h, w)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, pl_, r in zip(('y1', 'y2'), got, plain, ref):
+        e_k = float((g.double() - r.double()).abs().max())
+        e_p = float((pl_.double() - r.double()).abs().max())
+        floor = 2.0 ** -24 * float(r.abs().max())
+        if e_k > K3_PREC_FACTOR * max(e_p, floor):
+            raise AssertionError(f'probe fused block fp32 {name}: error vs '
+                                 f'float64 {e_k:.3e} > {K3_PREC_FACTOR} x '
+                                 f'the fp32 plain version\'s {e_p:.3e}')
+        err = max(err, e_k)
+    ms = cuda_ms(lambda: BP.fused_block(xc, *p, h, w), reps=20)
+    plain_ms = cuda_ms(lambda: BP.plain_fused_block(xc, *p, h, w), reps=20)
+    library_ms = cuda_ms(lambda: BP.direct_block(x, *p), reps=20)
+    bound_ms, by = probe_block_bound(b, h, w, c, 1, PEAK_3XTF32, 4, m)
+    log(f'probe fused block fp32 B={b} {h}x{w} C={c}: max abs err vs '
+        f'float64 {err:.2e}; {ms:.4f} ms (canvas in, canvases out), plain '
+        f'{plain_ms:.4f} ms, cuDNN direct block {library_ms:.4f} ms, bound '
+        f'{bound_ms:.5f} ms ({by}); launch-bound at this size')
+    entries.append({
+        'name': 'fused_block_fwd', 'route': 'cuda',
+        'source': 'mmlf_tpu_torch/csrc/conv_block.cu',
+        'replaces': 'scripts/pallas_block_probe.py:118',
+        'launches': launches['fused_block_fwd'], 'max_abs_err': err,
+        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+        'bound_by': by, 'library_ms': library_ms})
+
+    # --- fused block, bf16, the script's bench
+    reset_launches(M)
+    bench = BP.bench('cuda', reps=PROBE_REPS)
+    torch.cuda.synchronize()
+    launches = read_launches(M)
+    # per C: the resident chain and the chain with transposes, each one
+    # warm-up and PROBE_REPS calls of BENCH_BLOCKS blocks
+    n = len(BP.BENCH) * 2 * BP.BENCH_BLOCKS * (PROBE_REPS + 1)
+    if launches != expected(M, fused_block_fwd_bf16=n):
+        raise AssertionError(f'probe bench launches {launches}, expected '
+                             f'{n} of fused_block_fwd_bf16')
+    errs = []
+    h = w = BP.BENCH_HW
+    for c, b in BP.BENCH:
+        rng = np.random.default_rng(c)
+        p = BP.make_params(rng, 1, c, torch.bfloat16, 'cuda')[0]
+        x = torch.as_tensor(rng.standard_normal((b, h, w, c)) * 0.3,
+                            dtype=torch.bfloat16, device='cuda')
+        m = BP.canvas_dims(h, w)[3]
+        xc = BP.to_canvas(x, m)
+        got = BP.defined(*BP.fused_block(xc, *p, h, w), h, w)
+        plain = BP.defined(*BP.plain_fused_block(xc, *p, h, w), h, w)
+        ref = BP.defined(*BP.block_on_canvas(
+            M.C.plain_fused_block, xc, *(a.double() for a in p), h, w), h, w)
+        torch.cuda.synchronize()
+        errs += [k3_bf16_check(g, pl_, r, f'probe fused block bf16 C={c} '
+                               f'{name}')
+                 for name, g, pl_, r in zip(('y1', 'y2'), got, plain, ref)]
+        del got, plain, ref, xc, x
+        torch.cuda.empty_cache()
+    r0 = bench[0]
+    by = probe_block_bound(r0['b'], h, w, r0['c'], BP.BENCH_BLOCKS,
+                           PEAK_BF16, 2, BP.canvas_dims(h, w)[3])
+    for r in bench:
+        log(f'probe bench C={r["c"]} B={r["b"]} {BP.BENCH_BLOCKS} blocks '
+            f'bf16: K3 chain {r["ms"]:.3f} ms ({r["e2e_ms"]:.3f} with the '
+            f'canvas transposes), plain {r["plain_ms"]:.3f} ms, cuDNN '
+            f'direct chain {r["library_ms"]:.3f} ms, bound '
+            f'{r["bound_ms"]:.3f} ms ({r["flop"] / 1e12:.2f} TFLOP at '
+            f'{PEAK_BF16 / 1e12:.0f} TFLOP/s), '
+            f'{r["bound_ms"] / r["ms"]:.1%} of it; card {card}')
+    entries.append({
+        'name': 'fused_block_fwd_bf16', 'route': 'cuda',
+        'source': 'mmlf_tpu_torch/csrc/conv_block.cu',
+        'replaces': 'scripts/pallas_block_probe.py:118',
+        'launches': launches['fused_block_fwd_bf16'],
+        'max_abs_err': max(errs),
+        # the C 280 chain of BENCH_BLOCKS blocks
+        'ms': r0['ms'], 'plain_ms': r0['plain_ms'],
+        'bound_ms': r0['bound_ms'], 'bound_by': by[1],
+        'library_ms': r0['library_ms']})
+
+    # --- window copies
+    for probe, line, names in (
+            ('probe3', 'scripts/gather_probe3.py:70',
+             (('pallas_gather', 'window_copy', 'window_copy_probe3'),)),
+            ('probe4', 'scripts/gather_probe4.py:55',
+             (('pallas_gather', 'window_copy', 'window_copy_probe4'),
+              ('pallas_gather2', 'window_copy_ring',
+               'window_copy_ring_probe4')))):
+        reset_launches(M)
+        out = GP.run(probe, 'cuda', reps=20)
+        torch.cuda.synchronize()
+        launches = read_launches(M)
+        # the check, the warm-up and 20 timed calls of each copy
+        want = expected(M, **{counter: 22 for _, counter, _ in names})
+        if launches != want:
+            raise AssertionError(f'{probe} launches {launches}, expected '
+                                 f'{want}')
+        for fn, counter, name in names:
+            entries.append({
+                'name': name, 'route': 'cuda',
+                'source': 'mmlf_tpu_torch/csrc/window_gather.cu',
+                'replaces': line if fn == 'pallas_gather'
+                else 'scripts/gather_probe4.py:88',
+                'launches': launches[counter],
+                'max_abs_err': out[fn]['max_abs_err'],
+                'ms': out[fn]['ms'], 'plain_ms': out['plain_ms'],
+                'bound_ms': out['bound_ms'], 'bound_by': 'bytes',
+                'library_ms': out['library_ms']})
+            log(f'{name}: {out[fn]["ms"]:.4f} ms, plain '
+                f'{out["plain_ms"]:.4f} ms, advanced indexing '
+                f'{out["library_ms"]:.4f} ms, bound {out["bound_ms"]:.4f} ms '
+                f'({out["bytes"] / 1e9:.3f} GB read + written), '
+                f'{out["bound_ms"] / out[fn]["ms"]:.1%} of it; card {card}')
+    log(f'probes: {time.time() - t0:.1f} s')
+    return entries
+
+
+def _bn_stats(run: str) -> dict:
+    import torch
+    sd = torch.load(os.path.join(run, 'checkpoint.pt'), map_location='cpu',
+                    weights_only=True)['model_state_dict']
+    return {k: v for k, v in sd.items()
+            if k.endswith(('running_mean', 'running_var'))}
+
+
+def _log_rows(run: str) -> list:
+    return [[float(v) for v in line.split(',')] for line in
+            open(os.path.join(run, 'log.csv')).read().splitlines()[1:]]
+
+
+def phase_dp(M, train: str, val: str, work: str, card: str,
+             n_ranks: int = DP_RANKS, backend='gloo') -> dict:
+    """Data parallel through the library API: the recipe with
+    ``--pallas_trunk --mesh_data n_ranks`` for DP_STEPS steps at full
+    width, on gloo ranks that share this card (``train_ranks``; NCCL
+    refuses two ranks on one device), or with ``backend=None`` through
+    ``train``'s own path, one NCCL rank a card; each rank counts its own
+    launches (K1 accum x steps, K3 TRUNK_BLOCKS x accum x steps each way
+    on its share of every microbatch) and reports them.  Then the same
+    recipe on one rank from the same seed: the log's losses within
+    DP_LOSS_REL and every BN running statistic within DP_STATS_REL (of
+    itself and of its leaf's max).  With ranks sharing one card, s/step is
+    no scaling number."""
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.train import cli, loop
+
+    accum = int(RECIPE[RECIPE.index('--train_accum') + 1])
+    runs = {}
+    for n in (n_ranks, 1):
+        run = os.path.join(work, f'run_dp{n}')
+        os.makedirs(run)
+        args = [run, '--train_trainset', train, '--train_valset', val,
+                *RECIPE, '--train_steps', str(DP_STEPS), '--train_nan_guard',
+                '--pallas_trunk', '--mesh_data', str(n)]
+        params = cli.main.make_context('train', args).params
+        del params['output_dir'], params['device']
+        cfg = Config.from_dict(params).finalize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches(M)
+        t = time.time()
+        if n > 1 and backend is None:
+            state = loop.train(cfg, run, progress=False, device='cuda')
+            if state.ranks is None:
+                raise AssertionError(f'--mesh_data {n} fell back to one '
+                                     f'device')
+        elif n > 1:
+            state = loop.train_ranks(cfg, run, n, device='cuda',
+                                     backend=backend, progress=False,
+                                     timeout=900)
+        if n > 1:
+            if read_launches(M) != expected(M):
+                raise AssertionError('the parent launched kernels itself')
+            launches = {k: sum(r['launches'][k] for r in state.ranks)
+                        for k in counters(M)}
+        else:
+            state = loop.train(cfg, run, progress=False, device='cuda')
+            launches = read_launches(M)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        k3 = TRUNK_BLOCKS * accum * DP_STEPS * n
+        want = expected(M, window_gather=accum * DP_STEPS * n,
+                        fused_double_conv_fwd=k3, fused_double_conv_bwd=k3)
+        if launches != want or state.step != DP_STEPS:
+            raise AssertionError(f'dp {n} rank(s): launches {launches}, '
+                                 f'expected {want}; step {state.step}')
+        rows = _log_rows(run)
+        if [int(r[0]) for r in rows] != list(range(DP_STEPS)) or \
+                not np.isfinite(np.array(rows)).all():
+            raise AssertionError(f'dp {n} rank(s): log rows {rows}')
+        runs[n] = {'rows': rows, 'stats': _bn_stats(run), 'wall': wall,
+                   'launches': launches, 's_step': rows[-1][5]}
+        del state
+    dp, one = runs[n_ranks], runs[1]
+    loss_dp = np.array([r[1] for r in dp['rows']])
+    loss_one = np.array([r[1] for r in one['rows']])
+    loss_rel = float(np.abs(loss_dp - loss_one).max() / np.abs(loss_one).max())
+    if loss_rel > DP_LOSS_REL:
+        raise AssertionError(f'dp losses {loss_dp} vs one rank {loss_one}')
+    stats_rel = 0.0
+    for k, want in one['stats'].items():
+        got = dp['stats'][k]
+        d = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=DP_STATS_REL,
+                              atol=DP_STATS_REL * float(want.abs().max())):
+            raise AssertionError(f'dp BN statistic {k}: max diff {d:.3e}')
+        stats_rel = max(stats_rel, d / float(want.abs().max()))
+    how = (f'{n_ranks} gloo ranks sharing one card' if backend else
+           f'{n_ranks} NCCL ranks, one a card')
+    scaling = ('not a scaling number: the ranks share the card' if backend
+               else f'{one["s_step"] / dp["s_step"]:.2f}x one card\'s')
+    log(f'dp: the recipe with --pallas_trunk on {how}, {DP_STEPS} steps in '
+        f'{dp["wall"]:.1f} s wall (spawn, data, cache and validation '
+        f'included), step 1 {dp["s_step"]:.3f} s ({scaling}); one rank '
+        f'{one["s_step"]:.3f} s/step; losses {loss_dp} vs {loss_one} (max '
+        f'rel {loss_rel:.2e}), BN running statistics max diff '
+        f'{stats_rel:.2e} of their leaf max; ranks\' launches '
+        f'{ {k: v for k, v in dp["launches"].items() if v} }; card {card}')
+    return {'launches': dp['launches'], 'one_launches': one['launches'],
+            's_step': dp['s_step']}
+
 def random_checkpoint(run: str) -> None:
     """A full-width UPR checkpoint (BatchNorm included) with seeded random
     weights that keep the net input-sensitive, for ``chip_smoke.py
@@ -1870,6 +2170,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from types import SimpleNamespace
+        from mmlf_tpu_torch.ops import kernels
         from mmlf_tpu_torch.ops.kernels import build
         from mmlf_tpu_torch.ops.kernels import conv_block as C
         from mmlf_tpu_torch.ops.kernels import posterior as K
@@ -1878,7 +2179,7 @@ def main() -> int:
         print(f'chip_smoke: the port is not beside this script ({e})',
               file=sys.stderr)
         return 2
-    M = SimpleNamespace(C=C, K=K, W=W)
+    M = SimpleNamespace(C=C, K=K, W=W, counters=kernels.counters)
     # fp32 without TF32 for every cuDNN call here, as the port's entry
     # points set it
     from mmlf_tpu_torch.utils.device import resolve_device
@@ -1889,7 +2190,8 @@ def main() -> int:
         f'{torch.version.cuda}, {torch.cuda.device_count()} device(s)')
     mode = sys.argv[1:]
     if mode not in ([], ['k3'], ['k2'], ['serve'], ['bf16'],
-                    ['bf16_trunk'], ['host'], ['unet']):
+                    ['bf16_trunk'], ['host'], ['unet'], ['probes'], ['dp'],
+                    ['k1'], ['dp4']):
         print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
         return 2
 
@@ -1916,6 +2218,9 @@ def main() -> int:
     if mode == ['k2']:
         phase_kernel(K)
         return 0
+    if mode == ['probes']:
+        phase_probes(M, card)
+        return 0
 
     work = os.path.join(REPO, 'build', 'chip_smoke')
     shutil.rmtree(work, ignore_errors=True)
@@ -1941,6 +2246,23 @@ def main() -> int:
         return 0
     if mode == ['unet']:
         phase_unet(M, train, val, work, card)
+        return 0
+    if mode == ['dp']:
+        phase_dp(M, train, val, work, card)
+        return 0
+    if mode == ['dp4']:
+        if torch.cuda.device_count() < 4:
+            raise RuntimeError(f'dp4 needs 4 cards, this machine has '
+                               f'{torch.cuda.device_count()}')
+        phase_dp(M, train, val, work, card, n_ranks=4, backend=None)
+        return 0
+    if mode == ['k1']:
+        from mmlf_tpu_torch.data.hci4d import HCI4D
+        from mmlf_tpu_torch.data.pipeline import DevicePipeline
+        pipe = DevicePipeline(HCI4D(train, cache=True), recipe_config(train),
+                              seed=0, device='cuda')
+        for _ in range(2):
+            phase_window_gather(W, pipe, 64)
         return 0
     host = phase_host(train, val, card)
     gc.collect()
@@ -1979,6 +2301,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     unet = phase_unet(M, train, val, work, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = phase_dp(M, train, val, work, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    probes = phase_probes(M, card)
 
     main_run = phase_main(M, run, val)
     gmm_whole = main_run.pop('gmm')
@@ -2019,8 +2347,11 @@ def main() -> int:
         'route': 'cuda',
         'source': 'mmlf_tpu_torch/csrc/window_gather.cu',
         'replaces': 'mmlf_tpu/ops/pallas/window_gather.py:94',
-        # the plain, trunk and U-Net runs (the host run cuts on the host)
-        'launches': k1_launches + trunk_k1 + unet['k1_launches'],
+        # the plain, trunk, U-Net and dp runs (the host run cuts on the
+        # host)
+        'launches': k1_launches + trunk_k1 + unet['k1_launches']
+        + dp['launches']['window_gather']
+        + dp['one_launches']['window_gather'],
         'max_abs_err': gather['max_abs_err'],
         'ms': gather['ms'],
         'plain_ms': gather['plain_ms'],
@@ -2066,7 +2397,9 @@ def main() -> int:
             launches = bf16['k3_launches'][kind] + \
                 train_host['launches'][f'fused_double_conv_{kind}_bf16']
         else:
-            launches = k3_launches if kind == 'fwd' else trunk_launches_bwd
+            launches = (k3_launches if kind == 'fwd' else trunk_launches_bwd) \
+                + dp['launches'][f'fused_double_conv_{kind}'] \
+                + dp['one_launches'][f'fused_double_conv_{kind}']
         kernels.append({
             'name': f'fused_double_conv_{kind}{sfx}',
             'route': 'cuda',
@@ -2080,6 +2413,7 @@ def main() -> int:
             'bound_by': o['bound_by'],
             'library_ms': None,      # no single PyTorch call computes it
         })
+    kernels += probes
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -11,6 +11,12 @@
 //   y2  = conv2x2_pad0(y1) + b2          (B, Cout, H, W)
 //   ps  = sum y2, pss = sum y2^2         per channel over (B, H, W)
 //
+// The forward's options also make it the counterpart of the probe script's
+// Pallas kernel scripts/pallas_block_probe.py (fused_block): no input stage,
+// FWD_RELU_OUT (y2 = relu(...)), FWD_NO_STATS (no sums), y1 kept by the
+// caller.  Its bound is the forward's (operations), and its design the
+// forward's: the probe's canvas becomes NCHW in the wrapper.
+//
 // The backward recomputes y1 from x (the residuals are x and y2 only) and
 // gives dx, dsi, dti, dW1, db1, dW2, db2 from dy2, dps, dpss:
 //
@@ -2158,22 +2164,31 @@ long long wgrad_scratch(int B, int cin, int H, int W, int cout) {
   return s1 > s2 ? s1 : s2;
 }
 
-// The forward of either instance: y1 (scratch), y2 and, for bf16, its fp32
-// values y2f (scratch) from which ps and pss are summed.
+// Options of the forward (the probe's fused block, scripts/
+// pallas_block_probe.py fused_block, is the forward with FWD_RELU_OUT and
+// FWD_NO_STATS, no input stage, and y1 kept by the caller).
+enum { FWD_RELU_OUT = 1, FWD_NO_STATS = 2 };
+
+// The forward of either instance: y1, y2 and, for bf16, its fp32 values y2f
+// (scratch) from which ps and pss are summed.  opts: FWD_RELU_OUT applies a
+// ReLU to y2 in conv 2's epilogue, FWD_NO_STATS skips the sums (y2f, part,
+// ps and pss are then not touched and may be null).
 template <class P>
 cudaError_t block_fwd(const typename P::T* x, const float* si,
                       const float* ti, const typename P::T* w1,
                       const float* b1, const typename P::T* w2,
                       const float* b2, typename P::T* y1, typename P::T* y2,
                       float* y2f, float* part, float* ps, float* pss, int B,
-                      int cin, int H, int W, int cout, int flags,
+                      int cin, int H, int W, int cout, int flags, int opts,
                       cudaStream_t st) {
+  const bool stats_on = !(opts & FWD_NO_STATS);
   cudaError_t e = conv2x2<P>(x, si, ti, flags, w1, b1, nullptr, y1, nullptr,
                              B, cin, H, W, cout, 1, EPI_BIAS_RELU, st);
   if (e != cudaSuccess) return e;
-  e = conv2x2<P>(y1, nullptr, nullptr, 0, w2, b2, nullptr, y2, y2f, B, cout,
-                 H + 1, W + 1, cout, 0, EPI_BIAS, st);
-  if (e != cudaSuccess) return e;
+  e = conv2x2<P>(y1, nullptr, nullptr, 0, w2, b2, nullptr, y2,
+                 stats_on ? y2f : nullptr, B, cout, H + 1, W + 1, cout, 0,
+                 (opts & FWD_RELU_OUT) ? EPI_BIAS_RELU : EPI_BIAS, st);
+  if (e != cudaSuccess || !stats_on) return e;
   const float* stats = y2f != nullptr ? y2f : (const float*)y2;
   plane_kernel<PLANE_STATS, float, float><<<dim3(cout, B), THREADS, 0, st>>>(
       stats, nullptr, nullptr, nullptr, 0, nullptr, (float*)nullptr, part, B,
@@ -2209,19 +2224,20 @@ long long mmlf_conv_block_wgrad_scratch_bf16(int B, int cin, int H, int W,
 
 // Forward.  x (B, Cin, H, W); si, ti (Cin) (read only with affine_in); w1
 // (Cout, 4 Cin) and w2 (Cout, 4 Cout) GEMM weights (OIHW flattened: K-major,
-// k = ci*4 + tap); b1, b2 (Cout).  Writes y1 (B, Cout, H+1, W+1, scratch), y2
-// (B, Cout, H, W), part (2 B Cout, scratch), ps and pss (Cout).
+// k = ci*4 + tap); b1, b2 (Cout).  Writes y1 (B, Cout, H+1, W+1), y2
+// (B, Cout, H, W), part (2 B Cout, scratch), ps and pss (Cout).  opts:
+// FWD_RELU_OUT, FWD_NO_STATS (part, ps and pss unused, may be null).
 int mmlf_conv_block_fwd(const float* x, const float* si, const float* ti,
                         const float* w1, const float* b1, const float* w2,
                         const float* b2, float* y1, float* y2, float* part,
                         float* ps, float* pss, int B, int cin, int H, int W,
-                        int cout, int relu_in, int affine_in, int device,
-                        void* stream) {
+                        int cout, int relu_in, int affine_in, int opts,
+                        int device, void* stream) {
   if (bad_shape(B, cin, H, W, cout)) return (int)cudaErrorInvalidValue;
   MMLF_TRY(cudaSetDevice(device));
   const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
   MMLF_TRY(block_fwd<Tf32x3>(x, si, ti, w1, b1, w2, b2, y1, y2, nullptr,
-                             part, ps, pss, B, cin, H, W, cout, flags,
+                             part, ps, pss, B, cin, H, W, cout, flags, opts,
                              (cudaStream_t)stream));
   return (int)cudaSuccess;
 }
@@ -2232,16 +2248,16 @@ int mmlf_conv_block_fwd(const float* x, const float* si, const float* ti,
 // (C8 = C rounded up to 8), then the 32 k of each stage for every output
 // channel in turn.  x, y1 and the weights are 16-byte aligned, and the
 // allocations of x and y1 run on to the next 16-byte boundary (the bulk
-// copies read whole 16-byte chunks).  Writes y1 (bf16 scratch), y2 (bf16),
-// y2f (B, Cout, H, W, fp32 scratch), part, ps and pss as the fp32
-// forward.
+// copies read whole 16-byte chunks).  Writes y1 (bf16), y2 (bf16), y2f
+// (B, Cout, H, W, fp32 scratch), part, ps and pss as the fp32 forward
+// (with FWD_NO_STATS none of y2f, part, ps, pss, which may be null).
 int mmlf_conv_block_fwd_bf16(const uint16_t* x, const float* si,
                              const float* ti, const uint16_t* w1,
                              const float* b1, const uint16_t* w2,
                              const float* b2, uint16_t* y1, uint16_t* y2,
                              float* y2f, float* part, float* ps, float* pss,
                              int B, int cin, int H, int W, int cout,
-                             int relu_in, int affine_in, int device,
+                             int relu_in, int affine_in, int opts, int device,
                              void* stream) {
   if (bad_shape(B, cin, H, W, cout)) return (int)cudaErrorInvalidValue;
   if (misaligned(x) || misaligned(y1) || misaligned(w1) || misaligned(w2))
@@ -2249,7 +2265,7 @@ int mmlf_conv_block_fwd_bf16(const uint16_t* x, const float* si,
   MMLF_TRY(cudaSetDevice(device));
   const int flags = (affine_in ? IN_AFFINE : 0) | (relu_in ? IN_RELU : 0);
   MMLF_TRY(block_fwd<Bf16>(x, si, ti, w1, b1, w2, b2, y1, y2, y2f, part, ps,
-                           pss, B, cin, H, W, cout, flags,
+                           pss, B, cin, H, W, cout, flags, opts,
                            (cudaStream_t)stream));
   return (int)cudaSuccess;
 }

@@ -33,6 +33,15 @@ and running statistics stay float32.
 Under ``--remat`` (``models/feed_forward.py``) a block's forward runs again
 in the backward; ``recomputing()`` marks that run, and the running
 statistics are updated only in the first.
+
+Data parallel (``--mesh_data``, ``parallel/mesh.py``): in train mode the
+statistics are the global batch's, as the JAX package's are over its
+``data`` mesh.  The mean and the biased variance come from Σx and
+Σ(x − mean)² summed over the ranks (``all_reduce_sum``, whose backward
+sums the cotangents), and the bf16 backward sums Σdy and Σdy·x over the
+ranks for dx; ``affine_from_sums`` sums K3's Σy and Σy² the same way.
+Each rank's γ and β gradients stay its own samples' part (the train step
+sums every parameter gradient once).  With one rank nothing changes.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ import threading
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..parallel import mesh
 
 # per thread: the backward that recomputes a block may run on another thread
 # than a concurrent forward
@@ -69,6 +80,7 @@ class _BNApplyBf16(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, mean, rstd):
+        # mean and rstd are the global batch's under data parallel
         s = weight * rstd
         t = bias - mean * s
         ctx.save_for_backward(x, weight, mean, rstd)
@@ -82,11 +94,25 @@ class _BNApplyBf16(torch.autograd.Function):
         sum_dy = dyf.sum((0, 2, 3))
         sum_dy_x = (dyf * xf).sum((0, 2, 3))
         dgamma = rstd * (sum_dy_x - mean * sum_dy)
+        g_dy, g_dgamma = sum_dy, dgamma
+        if mesh.world() > 1:          # dx takes the global batch's sums
+            g_dy, g_dy_x = mesh.all_reduce_(torch.stack([sum_dy, sum_dy_x]))
+            g_dgamma = rstd * (g_dy_x - mean * g_dy)
+            n = n * mesh.world()
         xhat = (xf - mean[:, None, None]) * rstd[:, None, None]
         dx = (weight * rstd)[:, None, None] * (
-            dyf - (sum_dy / n)[:, None, None]
-            - xhat * (dgamma / n)[:, None, None])
+            dyf - (g_dy / n)[:, None, None]
+            - xhat * (g_dgamma / n)[:, None, None])
         return dx.to(x.dtype), dgamma, sum_dy, None, None
+
+
+def _global_stats(x: torch.Tensor):
+    """The global batch's per-channel mean and biased variance of the
+    ranks' NCHW ``x`` (equal shards), two passes, differentiable."""
+    n = x.numel() // x.shape[1] * mesh.world()
+    mean = mesh.all_reduce_sum(x.sum((0, 2, 3))) / n
+    d = x - mean[:, None, None]
+    return mean, mesh.all_reduce_sum((d * d).sum((0, 2, 3))) / n
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -102,6 +128,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if mesh.world() > 1:
+            mean, var = _global_stats(x)
+            self._update_running(mean.detach(), var.detach())
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            return (x - mean[:, None, None]) * scale[:, None, None] + \
+                self.bias[:, None, None]
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self._update_running(mean, var)
@@ -115,8 +147,11 @@ class BatchNorm2d(nn.BatchNorm2d):
             return x * s.to(x.dtype)[:, None, None] + \
                 t.to(x.dtype)[:, None, None]
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
+            if mesh.world() > 1:
+                mean, var = _global_stats(x.float())
+            else:
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
             self._update_running(mean, var)
         return _BNApplyBf16.apply(x, self.weight, self.bias, mean,
                                   torch.rsqrt(var + self.eps))
@@ -141,8 +176,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         ``--pallas_trunk``, not ``var_mean``); the running statistics and
         ``num_batches_tracked`` are updated from the detached values as
         ``forward`` updates them.  Gradients flow to ``ps``, ``pss``, the
-        weight and the bias.
+        weight and the bias.  Under data parallel the sums and the count
+        are the global batch's (``ps`` and ``pss`` summed over the ranks).
         """
+        if mesh.world() > 1:
+            ps, pss = mesh.all_reduce_sum(torch.stack([ps, pss]))
+            count = count * mesh.world()
         mean = ps / count
         var = pss / count - mean * mean
         self._update_running(mean.detach(), var.detach())

@@ -33,6 +33,11 @@ them.  There is no fallback: a build or launch error raises.  Each counts
 its kernel launches, float32 in ``.launches`` and bfloat16 in
 ``.launches_bf16``.  ``fused_double_conv`` is the autograd Function the
 trunk calls.
+
+``fused_block_fwd`` is the forward with no input stage and no sums, an
+optional ReLU on y2 and y1 returned: the fused block of
+``scripts/pallas_block_probe.py`` (``probes/block_probe.py`` runs it on
+the probe's canvas).
 """
 
 from __future__ import annotations
@@ -112,7 +117,8 @@ def plain_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,
 
 
 def _check(x, si, ti, w1, b1, w2, tensors) -> None:
-    """Shapes, dtypes and devices of one block's arguments."""
+    """Shapes, dtypes and devices of one block's arguments (si and ti may
+    be None: no input stage)."""
     if x.ndim != 4:
         raise ValueError(f'x must be (B, Cin, H, W), got {tuple(x.shape)}')
     cin, cout = x.shape[1], w1.shape[0]
@@ -120,7 +126,7 @@ def _check(x, si, ti, w1, b1, w2, tensors) -> None:
             'b1': (cout,), 'w2': (cout, cout, 2, 2)}
     for name, t in (('si', si), ('ti', ti), ('w1', w1), ('b1', b1),
                     ('w2', w2)):
-        if tuple(t.shape) != want[name]:
+        if t is not None and tuple(t.shape) != want[name]:
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
                              f'{want[name]}')
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -171,11 +177,13 @@ def _ptrs(*tensors):
 
 
 def _launch(name: str, args, n_ptrs: int) -> None:
+    """Launch ``name`` with ``n_ptrs`` pointers, then ints, the last two
+    arguments the device index and the stream."""
     lib = build.load('conv_block')
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + \
+        [ctypes.c_int] * (len(args) - n_ptrs - 1) + [ctypes.c_void_p]
     build.check(lib, fn(*args), f'{name} launch')
 
 
@@ -223,7 +231,7 @@ def fused_double_conv_fwd(x, si, ti, w1, b1, w2, b2, relu_in: bool,
     w1g, w2g = _gemm_weight(w1), _gemm_weight(w2)
     args = _ptrs(x, si, ti, w1g, b1, w2g, b2, y1, y2, part, ps, pss)
     _launch('mmlf_conv_block_fwd',
-            args + [b, cin, h, w, cout, int(relu_in), int(affine_in),
+            args + [b, cin, h, w, cout, int(relu_in), int(affine_in), 0,
                     x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream], 12)
     fused_double_conv_fwd.launches += 1
@@ -270,11 +278,75 @@ def _fwd_bf16(x, si, ti, w1, b1, w2, b2, relu_in, affine_in, new):
     w1g, w2g = _gemm_weight_bf16(w1), _gemm_weight_bf16(w2)
     args = _ptrs(x, si, ti, w1g, b1, w2g, b2, y1, y2, y2f, part, ps, pss)
     _launch('mmlf_conv_block_fwd_bf16',
-            args + [b, cin, h, w, cout, int(relu_in), int(affine_in),
+            args + [b, cin, h, w, cout, int(relu_in), int(affine_in), 0,
                     x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream], 13)
     fused_double_conv_fwd.launches_bf16 += 1
     return y2, ps, pss
+
+
+# the forward's options (csrc/conv_block.cu)
+FWD_RELU_OUT, FWD_NO_STATS = 1, 2
+
+
+def plain_fused_block(x, w1, b1, w2, b2, relu_out: bool):
+    """Plain PyTorch version of ``fused_block_fwd``: ``(y1, y2)`` in x's
+    dtype.  A bf16 ``x`` takes the bf16 instance's rounding points (the
+    weights rounded, y1 and y2 rounded after their fp32 sums); with
+    float64 parameters it is a float64 evaluation of that arithmetic."""
+    rnd = _bf if x.dtype == torch.bfloat16 else (lambda t: t)
+    y1 = rnd(torch.relu(F.conv2d(x.to(b1.dtype), rnd(w1), b1, padding=1)))
+    y2 = F.conv2d(y1, rnd(w2), b2)
+    if relu_out:
+        y2 = torch.relu(y2)
+    return y1.to(x.dtype), y2.to(x.dtype)
+
+
+def fused_block_fwd(x, w1, b1, w2, b2, relu_out: bool):
+    """K3's forward with no input stage and no sums, y1 kept: the fused
+    block of ``scripts/pallas_block_probe.py`` (``fused_block``) on NCHW
+    tensors.  ``(y1, y2)``: ``y1 = relu(conv2×2_pad1(x) + b1)``
+    ``(B, Cout, H+1, W+1)`` and ``y2 = [relu](conv2×2_pad0(y1) + b2)``
+    ``(B, Cout, H, W)``, both in x's dtype.  Counts launches in
+    ``.launches`` (float32) and ``.launches_bf16``."""
+    _check(x, None, None, w1, b1, w2, (('x', x), ('w1', w1), ('b1', b1),
+                                       ('w2', w2), ('b2', b2)))
+    if b2.shape != b1.shape:
+        raise ValueError(f'b2 has shape {tuple(b2.shape)}, expected '
+                         f'{tuple(b1.shape)}')
+    if x.device.type == 'cpu':
+        return plain_fused_block(x, w1, b1, w2, b2, relu_out)
+    b, cin, h, w = x.shape
+    cout = w1.shape[0]
+    x, b1, b2 = (t.contiguous() for t in (x, b1, b2))
+    opts = FWD_NO_STATS | (FWD_RELU_OUT if relu_out else 0)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        x = _aligned(x)
+        y1 = _canvas((b, cout, h + 1, w + 1), x.device)
+        y2 = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+        w1g, w2g = _gemm_weight_bf16(w1), _gemm_weight_bf16(w2)
+        args = _ptrs(x) + [None, None] + _ptrs(w1g, b1, w2g, b2, y1, y2) + \
+            [None] * 4
+        _launch('mmlf_conv_block_fwd_bf16',
+                args + [b, cin, h, w, cout, 0, 0, opts, x.device.index,
+                        stream], 13)
+        fused_block_fwd.launches_bf16 += 1
+        return y1, y2
+    y1 = torch.empty((b, cout, h + 1, w + 1), dtype=x.dtype, device=x.device)
+    y2 = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    w1g, w2g = _gemm_weight(w1), _gemm_weight(w2)
+    args = _ptrs(x) + [None, None] + _ptrs(w1g, b1, w2g, b2, y1, y2) + \
+        [None] * 3
+    _launch('mmlf_conv_block_fwd',
+            args + [b, cin, h, w, cout, 0, 0, opts, x.device.index, stream],
+            12)
+    fused_block_fwd.launches += 1
+    return y1, y2
+
+
+fused_block_fwd.launches = 0
+fused_block_fwd.launches_bf16 = 0
 
 
 def fused_double_conv_bwd(x, si, ti, w1, b1, w2, y2, dy2, dps, dpss,

@@ -24,6 +24,12 @@ values (numpy or CPU tensors, as the host sampler draws them); the wrapper
 checks them against the level shapes before anything runs.
 ``window_gather.launches`` counts kernel launches with a float32 image
 field, ``window_gather.launches_bf16`` those with a bfloat16 one.
+
+``window_copy`` is the same copy for one field and one level, the
+counterpart of the probe scripts' Pallas kernels (``pallas_gather`` of
+``scripts/gather_probe3.py`` and ``gather_probe4.py``, and
+``pallas_gather2``, the schedule that loads window b + 1 while window b is
+stored, as ``ring=True``); it counts ``.launches`` and ``.launches_ring``.
 """
 
 from __future__ import annotations
@@ -191,3 +197,73 @@ def window_gather(img_levels, aux_levels, mpi_levels, scene, level, ws_y,
 
 window_gather.launches = 0
 window_gather.launches_bf16 = 0
+
+
+def plain_window_copy(cache, index: np.ndarray, win: int):
+    """Plain PyTorch version of ``window_copy``: per sample, slice the
+    window.  ``index`` is the validated ``(3, B)`` host array (scene, wy,
+    wx)."""
+    return torch.stack([cache[s, wy:wy + win, wx:wx + win]
+                        for s, wy, wx in index.T.tolist()])
+
+
+def window_copy(cache, scene, ws_y, ws_x, win: int, ring: bool = False):
+    """``out[b] = cache[scene[b], wy[b]:wy[b]+win, wx[b]:wx[b]+win, :]``.
+
+    :param cache: ``(S, H, W, C)`` float32 or bfloat16, C times the
+        element size a multiple of 4 bytes
+    :param scene, ws_y, ws_x: ``(B,)`` host integers (numpy or CPU tensors)
+    :param ring: the two-slot bulk-copy ring (``pallas_gather2``'s
+        schedule), which needs a pixel of a whole number of 16-byte words
+    :returns: ``(B, win, win, C)`` in the cache's dtype
+    """
+    if cache.ndim != 4 or cache.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'cache must be (S, H, W, C) float32 or bfloat16, '
+                         f'got {tuple(cache.shape)} {cache.dtype}')
+    n_scenes, height, width, c = cache.shape
+    index = np.stack([np.asarray(a.cpu() if torch.is_tensor(a) else a)
+                      .astype(np.int64).reshape(-1)
+                      for a in (scene, ws_y, ws_x)])
+    s, wy, wx = index
+    if not (len(s) == len(wy) == len(wx)) or len(s) < 1:
+        raise ValueError('scene/ws_y/ws_x need one equal length >= 1')
+    if s.min() < 0 or s.max() >= n_scenes:
+        raise ValueError(f'scene index out of [0, {n_scenes})')
+    if wy.min() < 0 or wx.min() < 0 or wy.max() + win > height or \
+            wx.max() + win > width:
+        raise ValueError(f'a {win}x{win} window leaves the {height}x{width} '
+                         f'cache')
+    index = index.astype(np.int32)
+    dev = cache.device
+    if dev.type == 'cpu':
+        return plain_window_copy(cache, index, win)
+    if dev.type != 'cuda':
+        raise ValueError(f'no window copy for device {dev}')
+    px_bytes = c * cache.element_size()
+    if not cache.is_contiguous() or px_bytes % 4:
+        raise ValueError(f'the window copy needs a contiguous cache of '
+                         f'4-byte words a pixel, got {px_bytes} bytes')
+    if ring and (px_bytes % 16 or cache.data_ptr() % 16):
+        raise ValueError(f'the ring copies 16-byte words: a pixel of '
+                         f'{px_bytes} bytes is not a whole number of them')
+    out = torch.empty((index.shape[1], win, win, c), dtype=cache.dtype,
+                      device=dev)
+    lib = build.load('window_gather')
+    fn = lib.mmlf_window_copy_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    idx = torch.from_numpy(np.ascontiguousarray(index)).to(dev)
+    err = fn(cache.data_ptr(), idx.data_ptr(), index.shape[1], height, width,
+             win, px_bytes, int(ring), out.data_ptr(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, 'window copy kernel launch')
+    if ring:
+        window_copy.launches_ring += 1
+    else:
+        window_copy.launches += 1
+    return out
+
+
+window_copy.launches = 0
+window_copy.launches_ring = 0

@@ -4,9 +4,10 @@ reference), with the same defaults:
 
 Adds ``--device`` (default ``cuda``; raises when CUDA is absent, pass
 ``cpu`` to run on the CPU) and drops ``--jax_cache``, which has no meaning
-here.  Flags of ``mmlf_tpu.train.cli`` that the port does not run yet stay
-and raise NotImplementedError, naming their ROADMAP.md entry
-(``train/loop.check_ported``).
+here.  ``--mesh_data N`` starts N ranks of its own (``train/loop.train``),
+so the command line is the JAX package's.  Flags of ``mmlf_tpu.train.cli``
+that the port does not run yet stay and raise NotImplementedError, naming
+their ROADMAP.md entry (``train/loop.check_ported``).
 """
 
 import sys
@@ -60,7 +61,7 @@ from .loop import train
 @click.option('--val_disp_min', default=-3.5, help='Minimum disparity of dataset')
 @click.option('--val_disp_max', default=3.5, help='Maximum disparity of dataset')
 @click.option('--val_disp_step', default=0.1, help='Disparity increment for ensamble')
-@click.option('--mesh_data', default=0, help='data-parallel mesh size; 0 = all devices (not ported: raises above 1)')
+@click.option('--mesh_data', default=0, help='data-parallel mesh size; 0 = all devices (N ranks: one a GPU over NCCL; on the CPU, N gloo ranks)')
 @click.option('--train_seed', default=0, help='RNG seed for init + augmentation')
 @click.option('--train_steps', default=0, help='stop after N steps; 0 = run forever')
 @click.option('--bf16', is_flag=True, help='bfloat16 conv trunk')

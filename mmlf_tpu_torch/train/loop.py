@@ -36,7 +36,19 @@ The counterpart of ``mmlf_tpu.train.loop`` (which reproduces the reference
     unix time (reference quirk);
   * a checkpoint on SIGTERM and on completion; ``--train_resume`` restores
     model, optimizer and iteration and reseeds the sampler from
-    ``SeedSequence([train_seed, iteration])``.
+    ``SeedSequence([train_seed, iteration])``;
+  * ``--mesh_data N`` (0, the default: every visible GPU; 1 on the CPU):
+    N ranks (``parallel/mesh.launch``: NCCL, one rank a GPU; gloo on the
+    CPU) train one global batch as the JAX package's data mesh does.
+    Every rank draws the same global batch from the same seed and takes
+    its samples of each microbatch; K1 cuts them from the rank's own
+    replica of the scene cache; BatchNorm statistics (plain and K3's sums)
+    are the global batch's; each rank gathers the outputs and targets and
+    computes the global loss, and the parameter gradients are summed over
+    the ranks once per step.  Rank 0 alone writes the log, validates and
+    checkpoints.  As in the JAX package, N above the visible GPUs or a
+    batch (here also a microbatch) that does not divide over N prints a
+    warning and trains on one device.
 
 Runs on the card by default (``device='cuda'``) in float32 with TF32 off;
 ``--bf16`` runs the conv trunk in bfloat16 (plain or through K3's bf16
@@ -46,8 +58,8 @@ levels of the scene pyramid in bfloat16 (K1 cuts bf16 windows), and
 (``--cache_bf16`` does nothing on the host pipeline, as in the JAX
 package).  ``--model_unet`` replaces the out_net by the U-Net
 (``models/unet.py``); ``--pallas_trunk`` is then ignored, as in the JAX
-package.  Not ported (each raises NotImplementedError, naming its
-ROADMAP.md entry): ``--mesh_data`` > 1 and ``--model_inn``.
+package.  Not ported (raises NotImplementedError, naming its ROADMAP.md
+entry): ``--model_inn``.
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from ..losses import (improved_multi_uncertainty_l1, improved_uncertainty_l1,
 from ..models.feed_forward import FeedForward, init_default_
 from ..ops.codecs import mpi_to_weights, reg_to_class
 from ..ops.masks import create_mask_margin
+from ..parallel import mesh
 from ..utils.device import resolve_device
 from ..validate.cli import make_scene_eval, scene_to_device
 from .checkpoint import has_checkpoint, load_checkpoint, save_checkpoint
@@ -97,12 +110,8 @@ def check_ported(cfg: Config) -> None:
     """Raise for every option of ``mmlf_tpu.train`` this port lacks."""
     if cfg.model_invertible:
         raise NotImplementedError(NOT_SUPPORTED_MSG)
-    for flag, on, item in (
-            ('--mesh_data > 1', cfg.mesh_data > 1,
-             'Queue 1 item 4: data parallel'),
-            ('--model_inn', cfg.model_inn, 'Queue 1 item 7: the INN')):
-        if on:
-            raise _not_ported(flag, item)
+    if cfg.model_inn:
+        raise _not_ported('--model_inn', 'Queue 1 item 7: the INN')
 
 
 def lr_schedule(cfg: Config, step: int) -> float:
@@ -230,16 +239,24 @@ def microbatch_loss(cfg: Config, model: FeedForward,
     """Input path + forward + loss of one microbatch: a ``DeviceBatch`` cut
     from ``cache`` by K1, or (no cache) a host ``Batch`` already on the
     device.  Returns ``(loss, mask count)``; the caller runs the
-    backward."""
+    backward.  Under data parallel ``chunk`` is the rank's part of the
+    microbatch, and the loss and count are the whole microbatch's (the
+    outputs and targets gathered from every rank)."""
     if cache is None:
         h, v, i, d, gt, mpi, mask = augment_host_batch(chunk, cfg.train_ps)
     else:
         h, v, i, d, gt, mpi, mask = gather_augment(
             cache, chunk, cfg.train_ps, window_size(cfg.train_ps),
             with_mpi=with_mpi(cfg))
+    output = model(h, v, i, d, folded=True)
+    if mesh.world() > 1:
+        output = {k: mesh.all_gather(output[k])
+                  for k in ('mean', 'logvar', 'scores')
+                  if output.get(k) is not None}
+        gt, mask = mesh.all_gather(gt), mesh.all_gather(mask)
+        mpi = None if mpi is None else mesh.all_gather(mpi)
     gt, mpi, gt_classes, mask, mask_padding = prepare_targets(cfg, gt, mpi,
                                                               mask)
-    output = model(h, v, i, d, folded=True)
     loss = compute_loss(cfg, output, gt, mpi, gt_classes, mask,
                         mask_padding, step=step)
     return loss, torch.sum(mask).float()
@@ -249,9 +266,10 @@ def train_step(cfg: Config, model: FeedForward, optimizer, cache, batch,
                step: int, bn_train: bool = True) -> torch.Tensor:
     """One optimizer step over ``batch`` (``train_accum`` microbatches): a
     ``DeviceBatch`` of ``cache``, or a host ``Batch`` on the device when
-    ``cache`` is None.  ``bn_train=False`` is ``--train_eval_mode``
-    (running statistics, no updates).  Returns the step's loss as a 0-d
-    device tensor."""
+    ``cache`` is None (under data parallel, the rank's part of the global
+    batch: ``mesh.shard_batch``).  ``bn_train=False`` is
+    ``--train_eval_mode`` (running statistics, no updates).  Returns the
+    step's loss as a 0-d device tensor."""
     check_accum(cfg)
     accum = max(1, int(cfg.train_accum))
     exact = bool(cfg.train_accum_exact) and accum > 1
@@ -277,6 +295,7 @@ def train_step(cfg: Config, model: FeedForward, optimizer, cache, batch,
             # the running statistics of chunk 0 are the step's (the fused
             # trunk updates the same BN buffers in place)
             stats0 = [b.detach().clone() for b in model.buffers()]
+    mesh.sum_gradients(model.parameters())
     if stats0 is not None:
         with torch.no_grad():
             for b, b0 in zip(model.buffers(), stats0):
@@ -303,10 +322,76 @@ def make_optimizer(model: FeedForward) -> torch.optim.Adam:
 @dataclass
 class TrainState:
     """What ``train`` returns: the model, its optimizer and the number of
-    completed steps."""
+    completed steps; after a data-parallel run, the final checkpoint's
+    model and optimizer and each rank's report (``ranks``: its steps and
+    the kernel launches it counted)."""
     model: FeedForward
     optimizer: torch.optim.Adam
     step: int
+    ranks: Optional[list] = None
+
+
+def data_parallel_size(cfg: Config, dev: torch.device) -> int:
+    """The number of ranks ``--mesh_data`` asks for, or 1 with the JAX
+    package's loud warning when it cannot be had: more ranks than visible
+    GPUs, or a batch that does not divide over them (here also a
+    microbatch: every rank takes an equal part of each).  0 means every
+    visible GPU; on the CPU, 1 (any N runs N ranks there)."""
+    n_dev = torch.cuda.device_count() if dev.type == 'cuda' else None
+    n = cfg.mesh_data if cfg.mesh_data else (n_dev or 1)
+    if n <= 1:
+        return 1
+    accum = max(1, int(cfg.train_accum))
+    why = None
+    if n_dev is not None and n > n_dev:
+        why = f'mesh size {n} exceeds the {n_dev} local device(s)'
+    elif cfg.train_bs % n:
+        why = f'batch size {cfg.train_bs} does not divide over {n} devices'
+    elif cfg.train_bs % accum == 0 and (cfg.train_bs // accum) % n:
+        why = (f'microbatch size {cfg.train_bs // accum} does not divide '
+               f'over {n} devices')
+    if why is None:
+        return n
+    # a degraded-but-running fallback must be loud: an unnoticed
+    # single-device run on an N-device host burns N× step time
+    print(f'WARNING: data-parallel mesh disabled ({why}); training '
+          f'single-device', file=sys.stderr)
+    return 1
+
+
+def _rank_train(cfg: Config, output_dir: str, progress: bool,
+                device_type: str, initial_state: Optional[dict]) -> dict:
+    """One rank of ``train_ranks`` (in its own process and group)."""
+    from ..ops.kernels import launch_counts
+    dev = mesh.rank_device(device_type, mesh.rank())
+    state = train(cfg, output_dir, progress=progress, device=dev,
+                  initial_state=initial_state)
+    return {'rank': mesh.rank(), 'step': state.step,
+            'launches': launch_counts()}
+
+
+def train_ranks(cfg: Config, output_dir: str, n_ranks: int, device='cuda',
+                backend: Optional[str] = None, progress: bool = True,
+                initial_state: Optional[dict] = None,
+                timeout: Optional[float] = None) -> TrainState:
+    """Train on ``n_ranks`` new processes (``mesh.launch``): NCCL with one
+    rank a GPU by default on CUDA, gloo on the CPU; ``backend='gloo'``
+    lets several ranks share a GPU.  Returns the final checkpoint's state
+    on ``device``, with each rank's report."""
+    dev = resolve_device(device)
+    reports = mesh.launch(_rank_train, n_ranks,
+                          (cfg, output_dir, progress, dev.type,
+                           initial_state),
+                          device_type=dev.type, backend=backend,
+                          timeout=timeout)
+    ckpt = load_checkpoint(output_dir)
+    model = FeedForward.from_config(cfg)
+    model.load_state_dict(ckpt['model_state_dict'], strict=True)
+    model.to(dev)
+    optimizer = make_optimizer(model)
+    optimizer.load_state_dict(ckpt['optimizer_state_dict'])
+    return TrainState(model=model, optimizer=optimizer,
+                      step=int(ckpt['iteration']), ranks=reports)
 
 
 def train(cfg: Config, output_dir: str, progress: bool = True,
@@ -316,13 +401,23 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
     ``cfg.train_steps > 0`` bounds the loop; 0 runs forever like the
     reference.  ``initial_state`` (a state dict of the port's FeedForward,
     e.g. ``utils/convert.state_dict_from_jax`` of a JAX init) replaces the
-    seeded initialization of a fresh run.
+    seeded initialization of a fresh run.  With ``--mesh_data`` (see
+    ``data_parallel_size``) the run goes to ``train_ranks``; inside a rank
+    this function is that rank's loop.
     """
     if cfg.train_loss_strongest and cfg.train_loss_multimodal:
         raise ValueError('--train_loss_strongest and '
                          '--train_loss_multimodal exclude each other')
     check_ported(cfg)
     dev = resolve_device(device)
+    n_ranks, lead = mesh.world(), mesh.rank() == 0
+    if n_ranks == 1:
+        n = data_parallel_size(cfg, dev)
+        if n > 1:
+            return train_ranks(cfg, output_dir, n, dev.type,
+                               progress=progress, initial_state=initial_state)
+    accum = max(1, int(cfg.train_accum))
+    progress = progress and lead
 
     # a resumed run draws a fresh deterministic sample stream, seeded from
     # (train_seed, iteration) through a SeedSequence
@@ -355,8 +450,9 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
         pipeline = TrainPipeline(trainset, cfg, seed=rng_seed)
         cache = None
     # no transform: in-train validation feeds UNSHIFTED scenes even when
-    # train_shift != 0, like the reference and the JAX package
-    valset = HCI4D(cfg.train_valset, cache=True)
+    # train_shift != 0, like the reference and the JAX package; only rank 0
+    # validates
+    valset = HCI4D(cfg.train_valset, cache=True) if lead else None
 
     model = FeedForward.from_config(cfg)
     if initial_state is not None:
@@ -364,6 +460,7 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
     else:
         init_default_(model, cfg.train_seed)
     model.to(dev)
+    mesh.broadcast_module(model)
     optimizer = make_optimizer(model)
 
     i = 0
@@ -378,7 +475,8 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
                                  cfg.val_disp_min, cfg.val_disp_max,
                                  cfg.val_disp_step, cfg.val_loss_margin)
 
-    log = open(os.path.join(output_dir, 'log.csv'),
+    # rank 0 alone writes the log, validates and checkpoints
+    log = open(os.path.join(output_dir, 'log.csv') if lead else os.devnull,
                'a' if cfg.train_resume else 'w')
     if progress:
         print(LOG_HEADER)
@@ -414,6 +512,8 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
         val-interval save runs before ``i += 1`` (resume re-runs step i,
         the reference's replay), the SIGTERM and completion saves after it
         (resume continues at the next step)."""
+        if not lead:
+            return
         epoch = i // max(1, len(trainset) // cfg.train_bs)
         save_checkpoint(output_dir, model, optimizer, cfg, epoch, i,
                         loss_val_avg)
@@ -429,14 +529,16 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
     try:
         while True:
             if cache is None:
-                batch = batch_to_device(
-                    pipeline.sample_batch(cfg.train_bs,
-                                          pin_memory=dev.type == 'cuda'),
-                    dev, with_mpi(cfg))
+                batch = pipeline.sample_batch(cfg.train_bs,
+                                              pin_memory=dev.type == 'cuda')
             else:
                 batch = pipeline.sample_batch(cfg.train_bs)
+            if n_ranks > 1:
+                batch = mesh.shard_batch(batch, mesh.rank(), n_ranks, accum)
+            if cache is None:
+                batch = batch_to_device(batch, dev, with_mpi(cfg))
             eval_mode = cfg.train_eval_mode and i >= cfg.train_eval_mode_start
-            if cfg.train_profile and i == 10:
+            if cfg.train_profile and i == 10 and lead:
                 profiler = _start_profiler(dev)
             loss_train = train_step(cfg, model, optimizer, cache, batch, i,
                                     bn_train=not eval_mode)
@@ -449,7 +551,7 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
                     f'non-finite training loss at step {i}: '
                     f'{float(loss_train)}')
 
-            if i % cfg.val_interval == 0:
+            if i % cfg.val_interval == 0 and lead:
                 # flush lagged rows first so validation never lands inside
                 # a training row's time_elapsed
                 while pending:
@@ -462,19 +564,24 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
                 if time_start:
                     time_start = time.time()
 
-            pending.append((i, loss_train, loss_val_avg, mse_avg,
-                            bad_pix_avg))
+            if lead:
+                pending.append((i, loss_train, loss_val_avg, mse_avg,
+                                bad_pix_avg))
             while len(pending) > log_lag:
                 emit_row(pending.popleft())
 
             i += 1
-            if term_event is not None and term_event.is_set():
+            # the ranks stop together: at a step's end, when any has a
+            # SIGTERM
+            if mesh.any_rank(term_event is not None and
+                             term_event.is_set()):
                 while pending:
                     emit_row(pending.popleft())
                 save_rolling_checkpoint()
-                print(f'SIGTERM: checkpoint written after step {i - 1} '
-                      f'({i} steps completed); exiting cleanly (continue '
-                      f'with --train_resume)', file=sys.stderr)
+                if lead:
+                    print(f'SIGTERM: checkpoint written after step {i - 1} '
+                          f'({i} steps completed); exiting cleanly '
+                          f'(continue with --train_resume)', file=sys.stderr)
                 break
             if cfg.train_steps and i >= cfg.train_steps:
                 # persist the completed state (stamp == train_steps)

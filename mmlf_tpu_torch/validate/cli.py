@@ -193,9 +193,11 @@ def run_validation(output_dir, dataset, model_discrete=False,
                                '--mesh_ensemble are mutually exclusive')
     dev = resolve_device(device)
     if mesh_space > 1:
-        raise _not_ported('--mesh_space', 'Queue 1: data parallel')
+        raise _not_ported('--mesh_space',
+                          'Queue 1 item 4: data parallel, validation half')
     if mesh_ensemble > 1:
-        raise _not_ported('--mesh_ensemble', 'Queue 1: data parallel')
+        raise _not_ported('--mesh_ensemble',
+                          'Queue 1 item 4: data parallel, validation half')
 
     state, kwargs = load_model_state(output_dir)
     # stored config + whitelisted CLI overrides

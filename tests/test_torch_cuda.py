@@ -7,6 +7,8 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -742,3 +744,119 @@ def test_host_pipeline_train_step_on_card_matches_cpu(cuda, tmp_path):
             name, l2(g_gpu[name], g_cpu[name]), l2(g_cpu[name], g64[name]))
         assert l2(g_gpu[name], g64[name]) <= \
             1e-2 + l2(g_cpu[name], g64[name]), name
+
+
+# ------------------------------------------------ probes and data parallel
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('relu_out', [False, True])
+@pytest.mark.parametrize('b,h,w,c', [(2, 13, 17, 24), (3, 12, 14, 70),
+                                     (2, 20, 20, 280)])
+def test_fused_block_kernel_matches_plain(cuda, dtype, relu_out, b, h, w, c):
+    """K3's fused-block configuration (the block probe's ``fused_block``)
+    against its plain version evaluated in float64 (bf16: the same rounding
+    points): y1 and y2 each within 4x the float32 plain version's error,
+    floored at one ulp of the output's largest magnitude in its dtype."""
+    rng = np.random.default_rng(b + h + c)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    x = t(rng.standard_normal((b, c, h, w)) * 0.5).to(dtype)
+    p = [t(rng.standard_normal((c, c, 2, 2)) / np.sqrt(4 * c)),
+         t(rng.standard_normal(c) * 0.1),
+         t(rng.standard_normal((c, c, 2, 2)) / np.sqrt(4 * c)),
+         t(rng.standard_normal(c) * 0.1)]
+    before = (C.fused_block_fwd.launches, C.fused_block_fwd.launches_bf16)
+    got = C.fused_block_fwd(x, *p, relu_out)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (C.fused_block_fwd.launches,
+            C.fused_block_fwd.launches_bf16) == (before[0] + (not bf16),
+                                                 before[1] + bf16)
+    plain = C.plain_fused_block(x, *p, relu_out)
+    ref = C.plain_fused_block(x, *(a.double() for a in p), relu_out)
+    ulp = 2.0 ** (-8 if bf16 else -24)
+    for name, g, pl_, r in zip(('y1', 'y2'), got, plain, ref):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        e_k = float((g.double() - r.double()).abs().max())
+        e_p = float((pl_.double() - r.double()).abs().max())
+        assert e_k <= 4.0 * max(e_p, ulp * float(r.double().abs().max())), \
+            (name, e_k, e_p)
+    if relu_out:
+        assert float(got[1].min()) >= 0.0
+
+
+@pytest.mark.parametrize('c,win,ring', [(27, 120, False), (128, 128, False),
+                                        (128, 128, True), (4, 33, True)])
+def test_window_copy_kernels_match_plain(cuda, c, win, ring):
+    """The window copies (the gather probes' ``pallas_gather`` in 16- or
+    4-byte words, ``pallas_gather2``'s ring) are copies: bit-identical to
+    the plain version, the 27-channel one at odd columns."""
+    rng = np.random.default_rng(c + win)
+    cache = torch.rand((2, 512, 512, c), device=cuda)
+    scene = rng.integers(0, 2, 64)
+    wy = rng.integers(0, 512 - win, 64)
+    wx = rng.integers(0, 512 - win, 64) | 1
+    counter = 'launches_ring' if ring else 'launches'
+    before = getattr(W.window_copy, counter)
+    got = W.window_copy(cache, scene, wy, wx, win, ring=ring)
+    torch.cuda.synchronize()
+    assert getattr(W.window_copy, counter) == before + 1
+    want = W.plain_window_copy(cache, np.stack([scene, wy, wx]), win)
+    assert torch.equal(got, want)
+    if c % 4:
+        with pytest.raises(ValueError, match='16-byte'):
+            W.window_copy(cache, scene, wy, wx, win, ring=True)
+
+
+def test_window_copy_ring_refuses_unaligned_pixels(cuda):
+    cache = torch.zeros((2, 64, 64, 27), device=cuda)
+    with pytest.raises(ValueError, match='16-byte'):
+        W.window_copy(cache, [0], [0], [1], 8, ring=True)
+
+
+def test_data_parallel_on_card_matches_one_rank(cuda, tmp_path):
+    """``train_ranks`` with two gloo ranks sharing the card, through K1
+    and K3 (``--pallas_trunk``): every rank launches on its half of each
+    microbatch, and the log's losses and the BN running statistics equal
+    one rank's within 1e-5 and 1e-4.  The warm start's LR is 0 at step 0,
+    so both runs take step 1 from the same weights (Adam's ~lr·sign(g)
+    first update would lift rounding differences in near-zero gradients
+    into the second step's BN statistics)."""
+    from mmlf_tpu_torch.data.synth import generate_dataset
+    from mmlf_tpu_torch.train import loop
+
+    data = str(tmp_path / 'data')
+    generate_dataset(data, scenes=1, size=128, seed=0)
+    stats, rows = {}, {}
+    for n in (2, 1):
+        out = str(tmp_path / f'run{n}')
+        os.makedirs(out)
+        cfg = Config(train_trainset=data, train_valset=data, train_bs=8,
+                     train_ps=32, train_lr=1e-3, train_max_downscale=2,
+                     train_accum=2, train_steps=2, val_interval=100,
+                     train_warm_start=True,
+                     model_chs=8, model_in_blocks=1, model_out_blocks=2,
+                     model_uncert=True, pallas_trunk=True,
+                     train_nan_guard=True, mesh_data=n).finalize()
+        if n > 1:
+            state = loop.train_ranks(cfg, out, n, device='cuda',
+                                     backend='gloo', progress=False,
+                                     timeout=300)
+            for r in state.ranks:
+                assert r['launches']['window_gather'] == 4
+                assert r['launches']['fused_double_conv_fwd'] == 6 * 2 * 2
+        else:
+            state = loop.train(cfg, out, progress=False, device='cuda')
+        rows[n] = [float(line.split(',')[1]) for line in
+                   open(os.path.join(out, 'log.csv')).read().splitlines()[1:]]
+        stats[n] = {k: v.cpu() for k, v in state.model.state_dict().items()
+                    if k.endswith(('running_mean', 'running_var'))}
+    np.testing.assert_allclose(rows[2], rows[1], rtol=1e-5)
+    for k, want in stats[1].items():
+        torch.testing.assert_close(stats[2][k], want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()),
+                                   msg=k)

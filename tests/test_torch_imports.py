@@ -21,7 +21,9 @@ names = [m.name for m in pkgutil.walk_packages(mmlf_tpu_torch.__path__,
 assert {'mmlf_tpu_torch.validate.tiling', 'mmlf_tpu_torch.export',
         'mmlf_tpu_torch.serve', 'mmlf_tpu_torch.utils.msgpack',
         'mmlf_tpu_torch.native', 'mmlf_tpu_torch.models.unet',
-        'mmlf_tpu_torch.data.transforms'} <= set(names)
+        'mmlf_tpu_torch.data.transforms', 'mmlf_tpu_torch.parallel.mesh',
+        'mmlf_tpu_torch.probes.block_probe',
+        'mmlf_tpu_torch.probes.gather_probe'} <= set(names)
 for name in names:
     importlib.import_module(name)
 from mmlf_tpu_torch.ops.kernels import build
@@ -106,6 +108,12 @@ def test_entry_points_raise_without_cuda(tmp_path):
     res = CliRunner().invoke(serve.main, [str(tmp_path), '--no_warmup'])
     assert isinstance(res.exception, RuntimeError), res.output
     assert 'CUDA is not available' in str(res.exception)
+
+    from mmlf_tpu_torch.probes import block_probe, gather_probe
+    for fn in (block_probe.check, block_probe.bench,
+               lambda: gather_probe.run('probe3')):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            fn()
 
 
 def test_kernel_wrapper_takes_plain_version_only_on_cpu():

@@ -371,20 +371,21 @@ def test_accum_exact_guards():
     loop.check_accum(Config(**base).finalize())
 
 
-# the pallas_trunk, bf16, cache_bf16, remat, host_pipeline and model_unet
-# cases pair each (ported) flag with one that still raises: the run stops
-# at the unported one (the host pipeline and the U-Net run in
-# tests/test_torch_host_pipeline.py and tests/test_torch_unet.py)
+# the pallas_trunk, bf16, cache_bf16, remat, host_pipeline, model_unet and
+# mesh_data cases pair each (ported) flag with one that still raises: the
+# run stops at the unported one, before any rank starts (the host pipeline,
+# the U-Net and data parallel run in tests/test_torch_host_pipeline.py,
+# tests/test_torch_unet.py and tests/test_torch_parallel.py)
 @pytest.mark.parametrize('kw,match', [
     ({'pallas_trunk': True, 'model_unet': True, 'model_inn': True},
      'item 7'),
-    ({'bf16': True, 'host_pipeline': True, 'mesh_data': 2}, 'item 4'),
+    ({'bf16': True, 'host_pipeline': True, 'model_inn': True}, 'item 7'),
     ({'cache_bf16': True, 'host_pipeline': True, 'model_inn': True},
      'item 7'),
-    ({'remat': True, 'mesh_data': 2}, 'item 4'),
-    ({'host_pipeline': True, 'mesh_data': 2}, 'ROADMAP'),
-    ({'mesh_data': 2}, 'ROADMAP'),
-    ({'model_unet': True, 'mesh_data': 2}, 'ROADMAP'),
+    ({'remat': True, 'mesh_data': 2, 'model_inn': True}, 'item 7'),
+    ({'host_pipeline': True, 'mesh_data': 2, 'model_inn': True}, 'ROADMAP'),
+    ({'mesh_data': 2, 'model_inn': True}, 'ROADMAP'),
+    ({'model_unet': True, 'mesh_data': 2, 'model_inn': True}, 'ROADMAP'),
     ({'model_inn': True}, 'ROADMAP'),
     ({'model_invertible': True}, 'INNs are not supported')])
 def test_unported_flags_raise(tmp_path, kw, match):
