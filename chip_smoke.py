@@ -20,6 +20,10 @@
     python3 chip_smoke.py k1       # card, build, data and phase K1 twice
                                    # on the recipe's device cache (no
                                    # train run)
+    python3 chip_smoke.py mesh_val # card, build, the val scene, a seeded
+                                   # full-width checkpoint, main and
+                                   # mesh_val
+    python3 chip_smoke.py inn      # card, build, data and inn
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -109,6 +113,16 @@ Phases, in order; any failure exits non-zero and prints no result:
              and the window copies of probe3 and probe4 (the row copy and
              the two-slot ring), bit for bit against advanced indexing;
              times, plain versions', bounds and the library calls';
+7j. inn    — ``--model_inn`` at full width (9 views, 3 + 8 coupling
+             blocks, ksize 2, dims 108): the recipe's batch flags without
+             ``--model_uncert`` for INN_STEPS steps (K1 accum x steps, no
+             K3), checked as train; its checkpoint validated whole-scene and
+             with ``--val_tile 64`` (windows of 108, ``mu``'s side), the
+             stitched outputs against the whole scene's; exported and
+             served over HTTP, the mean against the direct forward
+             (SERVE_TOL); prints s/step, patches/s, peak memory, s/scene
+             and runtime_s, and a profile of one microbatch split into
+             convolutions and the rest;
 8. main    — ESE validation of the train phase's checkpoint through the
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
@@ -118,6 +132,13 @@ Phases, in order; any failure exits non-zero and prints no result:
              holds the member means and logvars and the selected member
              against phase main's; prints s/scene, peak memory and the
              metrics' differences from phase main's;
+9b. mesh_val — the same checkpoint with ``--val_ensamble --mesh_ensemble
+             2`` and ``--val_ensamble --mesh_space 2`` through the library
+             entry (``run_validation_ranks``) on two gloo ranks sharing
+             the card: K2 once per scene on each rank (none in this
+             process); members, posterior, result and metrics against
+             phase main's (MESH_TOL, MESH_REL); s/scene, which is no
+             scaling number;
 10. serve  — the plain run's checkpoint exported as five artifacts (UPR
              fp32, UPR u8, UPR batch 2, UPR tiled 256, ESE), each served
              by ``make_server`` on a thread and sent one warm-up and 3 (ESE:
@@ -147,8 +168,9 @@ The weights start random (seeded) and train a few steps, so the accuracy
 numbers printed mean nothing; the run shows that the port builds, agrees
 with its plain versions and runs the main path's train step (plain and
 ``--pallas_trunk``, each in float32 and in bfloat16), its validation and
-its serving on the card, data parallel over two ranks, and the probe
-scripts' kernels.
+its serving on the card, data parallel over two ranks, sharded
+validation over two ranks, the INN end to end, and the probe scripts'
+kernels.
 Imports nothing of JAX or of mmlf_tpu.
 """
 
@@ -261,6 +283,17 @@ DP_RANKS = 2
 DP_STEPS = 2
 DP_LOSS_REL = 1e-5
 DP_STATS_REL = 1e-4
+# phase mesh_val: gloo ranks sharing the card, and the tolerances of the
+# members (max |d| in disparity and in log units), the posterior and the
+# metrics (relative) against the whole-scene run
+MESH_RANKS = 2
+MESH_TOL = 1e-4
+MESH_REL = 1e-4
+# phase inn: steps, the --val_tile whose window (64 + 2 x 22) is mu's
+# side, and the tiled posterior's and logvar's max |d| from the whole scene
+INN_STEPS = 3
+INN_TILE = 64
+INN_TILE_TOL = 1e-4
 
 
 def log(*args):
@@ -308,6 +341,20 @@ def conv_flop_per_pixel() -> int:
     280→280 convs (the 280→2 head is left out)."""
     return 4 * (2 * 4 * 27 * 70 + 5 * 2 * 4 * 70 * 70) + \
         7 * 2 * 2 * 4 * 280 * 280
+
+
+def inn_flop_per_pixel() -> int:
+    """Forward FLOP per pixel of the full-width INN (9 views, 3 + 8
+    coupling blocks, ksize 2, dims 108): each block's two subnets (a 2x2
+    conv from one half of the channels to twice the other half, then a
+    2x2 conv at that width) and its channel permutation, 4 streams x 3
+    blocks at 27 channels and 8 blocks at 108, then the readout's 108 x
+    108 distance product."""
+    def block(c):
+        a, b = c // 2, c - c // 2
+        return (2 * 4 * (a * 2 * b + (2 * b) ** 2 + b * 2 * a + (2 * a) ** 2)
+                + 2 * c * c)
+    return 4 * 3 * block(27) + 8 * block(108) + 2 * 108 * 108
 
 
 def counters(M) -> dict:
@@ -513,15 +560,16 @@ def check_gather(W, cache, batch, win, what: str) -> float:
 
 def phase_train(M, train: str, val: str, run: str, steps: int,
                 trunk: bool = False, bf16: bool = False, host: bool = False,
-                unet: bool = False) -> dict:
+                unet: bool = False, inn: bool = False) -> dict:
     """The README UPR recipe through the train CLI (with ``--pallas_trunk``
     when ``trunk``; with ``--bf16 --cache_bf16`` when ``bf16``: a bf16
     trunk, through K3's bf16 instance under ``trunk``, and K1 cutting bf16
     image windows; ``host``: ``--host_pipeline`` instead of
     ``--cache_bf16``, the windows cut on the host and K1 never launched;
-    ``unet``: ``--model_unet``), then K1 against its plain version on the
-    run's own last batch (the device cache's runs).  ``M`` holds the
-    kernel modules."""
+    ``unet``: ``--model_unet``; ``inn``: ``--model_inn`` in place of
+    ``--model_uncert``), then K1 against its plain version on the run's
+    own last batch (the device cache's runs).  ``M`` holds the kernel
+    modules."""
     import numpy as np
     import torch
     from mmlf_tpu_torch.train import cli, loop
@@ -552,8 +600,10 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
     setattr(loop, base.__name__, Recording)
     loop.batch_to_device = timed_to_device
     os.makedirs(run)
+    recipe = ([a for a in RECIPE if a != '--model_uncert'] + ['--model_inn']
+              if inn else RECIPE)
     args = [run, '--train_trainset', train, '--train_valset', val,
-            *RECIPE, '--train_steps', str(steps), '--train_nan_guard']
+            *recipe, '--train_steps', str(steps), '--train_nan_guard']
     if trunk:
         args.append('--pallas_trunk')
     if bf16:
@@ -601,7 +651,8 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
             ckpt['optimizer_state_dict'] is None or \
             hyper['pallas_trunk'] != trunk or hyper['bf16'] != bf16 or \
             hyper['cache_bf16'] != (bf16 and not host) or \
-            hyper['host_pipeline'] != host or hyper['model_unet'] != unet:
+            hyper['host_pipeline'] != host or hyper['model_unet'] != unet \
+            or hyper['model_inn'] != inn:
         raise AssertionError('checkpoint.pt does not hold the final step')
     del state
 
@@ -615,13 +666,15 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
                                                       (c + 1) * size),
                          pipe.win, f'train batch chunk {c}')
 
-    name = 'train' + ('_unet' if unet else '') + ('_host' if host else '') \
-        + ('_bf16' if bf16 else '') + ('_trunk' if trunk else '')
+    name = 'train' + ('_unet' if unet else '') + ('_inn' if inn else '') \
+        + ('_host' if host else '') + ('_bf16' if bf16 else '') \
+        + ('_trunk' if trunk else '')
     bs = int(RECIPE[RECIPE.index('--train_bs') + 1])
     ps = int(RECIPE[RECIPE.index('--train_ps') + 1])
     steady = [r[5] for r in rows[1:]]
     s_step = sum(steady) / len(steady)
-    flop = 3 * conv_flop_per_pixel() * ps * ps * bs
+    flop = 3 * (inn_flop_per_pixel() if inn else conv_flop_per_pixel()) \
+        * ps * ps * bs
     flops = '' if unet else (
         f'{flop / s_step / 1e12:.1f} TFLOP/s conv fwd+bwd '
         f'{"bf16" if bf16 else "fp32"} ({flop / 1e12:.1f} TFLOP/step, 3 x '
@@ -1171,7 +1224,7 @@ def phase_main(M, run: str, val: str) -> dict:
     from mmlf_tpu_torch.utils import pfm
     return {'launches': launches, 'max_abs_err': err,
             's_per_scene': result['runtime'], 'wall_s': wall,
-            'peak_bytes': peak, 'gmm': gmm,
+            'peak_bytes': peak, 'gmm': gmm, 'posterior': post,
             'result': pfm.load(os.path.join(scene, 'result.pfm')),
             'metrics': {k: result[k] for k in METRICS}}
 
@@ -2144,6 +2197,259 @@ def phase_dp(M, train: str, val: str, work: str, card: str,
     return {'launches': dp['launches'], 'one_launches': one['launches'],
             's_step': dp['s_step']}
 
+def phase_mesh_val(M, run: str, val: str, work: str, whole: dict,
+                   card: str) -> dict:
+    """The train phase's checkpoint validated with ``--val_ensamble
+    --mesh_ensemble 2`` and ``--val_ensamble --mesh_space 2`` through the
+    library entry (``run_validation_ranks``) on MESH_RANKS gloo ranks that
+    share the card.  Each rank counts its K2 launches: one per scene
+    (``--mesh_ensemble``: on the gathered members; ``--mesh_space``: on its
+    own rows), none in this process.  The member stacks, the posterior,
+    the result and the metrics are held against phase main's whole-scene
+    run (``whole``) within MESH_TOL / MESH_REL: the ranks run other conv
+    shapes (a slab) or the same ones in another process, and cuDNN may
+    pick other algorithms.  s/scene is printed, but two ranks on one card
+    give no scaling number."""
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.utils import pfm
+    from mmlf_tpu_torch.validate.cli import run_validation_ranks
+
+    out = {'launches': 0}
+    for flag in ('mesh_ensemble', 'mesh_space'):
+        d = os.path.join(work, f'run_{flag}')
+        os.makedirs(d)
+        shutil.copy(os.path.join(run, 'checkpoint.pt'), d)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches(M)
+        t = time.time()
+        result = run_validation_ranks(d, val, MESH_RANKS, device='cuda',
+                                      backend='gloo', timeout=900,
+                                      val_ensamble=True, **{flag: 2})
+        wall = time.time() - t
+        if read_launches(M) != expected(M):
+            raise AssertionError(f'{flag}: the parent launched kernels')
+        for r in result['ranks']:
+            if r['launches'] != expected(M, laplace_mixture_posterior=1):
+                raise AssertionError(f'{flag}: rank {r["rank"]} launched '
+                                     f'{r["launches"]}, expected K2 once')
+        out['launches'] += sum(r['launches']['laplace_mixture_posterior']
+                               for r in result['ranks'])
+        scene = os.path.join(d, 'scenes', 'scene_00')
+        gmm = np.load(os.path.join(scene, 'gmm.npy'))
+        post = np.load(os.path.join(scene, 'posterior.npy'))
+        mean = pfm.load(os.path.join(scene, 'result.pfm'))
+        if gmm.shape != whole['gmm'].shape or \
+                post.shape != whole['posterior'].shape:
+            raise AssertionError(f'{flag}: gmm.npy {gmm.shape}, '
+                                 f'posterior.npy {post.shape}')
+        diffs = {
+            'means': float(np.abs(gmm[0] - whole['gmm'][0]).max()),
+            'logvars': float(np.abs(np.log(gmm[1])
+                                    - np.log(whole['gmm'][1])).max()),
+            'posterior': float(np.abs(post - whole['posterior']).max()
+                               / np.abs(whole['posterior']).max()),
+            'mean (selected)': float((np.abs(mean - whole['result'])
+                                      > MESH_TOL).mean()),
+            'metrics': max(abs(result[k] - whole['metrics'][k])
+                           / max(abs(whole['metrics'][k]), 1e-12)
+                           for k in METRICS)}
+        limits = {'means': MESH_TOL, 'logvars': MESH_TOL,
+                  'posterior': MESH_REL, 'mean (selected)': 1e-3,
+                  'metrics': MESH_REL}
+        bad = {k: v for k, v in diffs.items() if not v <= limits[k]}
+        if bad:
+            raise AssertionError(f'{flag} vs the whole-scene run: {bad} '
+                                 f'(limits {limits})')
+        out[flag] = result['runtime']
+        log(f'mesh_val: --val_ensamble --{flag} 2 on {MESH_RANKS} gloo ranks '
+            f'sharing one card: {result["runtime"]:.3f} s/scene (rank 0\'s '
+            f'CLI runtime; not a scaling number: the ranks share the card), '
+            f'{wall:.1f} s wall (spawn and load included); K2 once a rank; '
+            f'against phase main\'s whole-scene run: '
+            + ', '.join(f'{k} {v:.3e}' for k, v in diffs.items())
+            + f' (max |d| of members in disparity and log units, posterior '
+            f'relative to its max, share of pixels whose result moved more '
+            f'than {MESH_TOL}, largest relative metric difference); metrics '
+            + json.dumps({k: result[k] for k in METRICS}) + f'; card {card}')
+    return out
+
+
+def inn_breakdown(run: str) -> None:
+    """Device time of one full-width INN microbatch (64 windows of 96²,
+    the run's weights in train mode, forward + IB loss + backward) by
+    CUDA kernel (``profile_rows``), grouped into convolutions and GEMMs
+    (cuDNN, cuBLAS and CUTLASS kernels) and everything else."""
+    import torch
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.losses import information_bottleneck
+    from mmlf_tpu_torch.models import build_model
+    from mmlf_tpu_torch.ops.codecs import reg_to_class
+    from mmlf_tpu_torch.validate.cli import load_model_state
+
+    state, hyper = load_model_state(run)
+    cfg = Config.from_dict(hyper)
+    model = build_model(cfg)
+    model.load_state_dict(state, strict=True)
+    model.cuda().train()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    stacks = [torch.rand(64, 27, 96, 96, device='cuda', generator=gen)
+              for _ in range(4)]
+    target = reg_to_class(torch.rand(64, 96, 96, device='cuda',
+                                     generator=gen) * 7.0 - 3.5,
+                          -3.5, 3.5, cfg.steps)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = model(*stacks, folded=True)
+        information_bottleneck(out, target, cfg.train_beta).backward()
+
+    rows = profile_rows(step, (), calls=2)
+    if not rows:
+        log('inn breakdown: the profiler saw no device time')
+        return
+    dense = ('conv', 'gemm', 'xmma', 'cutlass', 'cudnn', 'sm90_', 'wgrad',
+             'dgrad', 'implicit')
+    conv = sum(ms for k, ms, _ in rows if any(w in k.lower() for w in dense))
+    total = sum(ms for _, ms, _ in rows)
+    log(f'inn breakdown (one microbatch of 64 at 96², fwd + IB loss + bwd, '
+        f'profiler device ms): total {total:.2f}, convolutions and GEMMs '
+        f'{conv:.2f} ({conv / total:.1%}), other {total - conv:.2f}; '
+        f'largest: ' + '; '.join(f'{k[:50]} x{n} {ms:.2f}'
+                                 for k, ms, n in rows[:8]))
+    del model, stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_inn(M, train: str, val: str, work: str, card: str) -> dict:
+    """``--model_inn`` at full width (9 views, 3 + 8 coupling blocks,
+    ksize 2, dims 108): the README recipe's batch flags without
+    ``--model_uncert`` for INN_STEPS steps (K1 accum x steps, no K3);
+    validation of its checkpoint whole-scene and with ``--val_tile 64``
+    (windows of 108, ``mu``'s side: the two-window probe keeps ``mu`` out
+    of the stitched outputs), the stitched result, logvar and posterior
+    against the whole scene's (INN_TILE_TOL; the result is a bin centre,
+    compared by the share of pixels that moved); then the checkpoint
+    exported and served over HTTP after one warm-up, its mean against the
+    direct eval forward's (SERVE_TOL)."""
+    import threading
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.config import Config
+    from mmlf_tpu_torch.data.hci4d import HCI4D
+    from mmlf_tpu_torch.export import export_inference
+    from mmlf_tpu_torch.models import build_model
+    from mmlf_tpu_torch.serve import InferenceEngine, make_server
+    from mmlf_tpu_torch.utils import pfm
+    from mmlf_tpu_torch.validate import cli
+    from mmlf_tpu_torch.validate.cli import load_model_state, scene_to_device
+
+    run = os.path.join(work, 'run_inn')
+    trained = phase_train(M, train, val, run, INN_STEPS, inn=True)
+    k1, s_step, peak = (trained['launches']['window_gather'],
+                        trained['s_step'], trained['peak'])
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    inn_breakdown(run)
+
+    scene = os.path.join(run, 'scenes', 'scene_00')
+    outs, res = {}, {}
+    for tile in (0, INN_TILE):
+        reset_launches(M)
+        torch.cuda.synchronize()
+        t = time.time()
+        res[tile] = cli.main([run, val, '--val_tile', str(tile)],
+                             standalone_mode=False)
+        torch.cuda.synchronize()
+        res[tile]['wall'] = time.time() - t
+        if read_launches(M) != expected(M):
+            raise AssertionError(f'inn validate launched {read_launches(M)}')
+        for key in METRICS:
+            if not math.isfinite(res[tile][key]):
+                raise AssertionError(f'inn metric {key} = {res[tile][key]}')
+        outs[tile] = {f: pfm.load(os.path.join(scene, f)) for f in
+                      ('result.pfm', 'uncert.pfm')}
+        outs[tile]['posterior'] = np.load(os.path.join(scene,
+                                                       'posterior.npy'))
+        if outs[tile]['posterior'].shape != (108, SIZE, SIZE):
+            raise AssertionError(f'inn posterior.npy '
+                                 f'{outs[tile]["posterior"].shape}')
+    w, tl = outs[0], outs[INN_TILE]
+    moved = float((np.abs(tl['result.pfm'] - w['result.pfm']) > 1e-6).mean())
+    d_post = float(np.abs(tl['posterior'] - w['posterior']).max())
+    same = np.abs(tl['result.pfm'] - w['result.pfm']) <= 1e-6
+    d_lv = float(np.abs(tl['uncert.pfm'] - w['uncert.pfm'])[same].max())
+    if moved > 1e-3 or d_post > INN_TILE_TOL or d_lv > INN_TILE_TOL:
+        raise AssertionError(
+            f'inn --val_tile {INN_TILE} vs whole scene: result moved at '
+            f'{moved:.2e} of pixels (limit 1e-3), max |d posterior| '
+            f'{d_post:.3e}, max |d logvar| where the result agrees '
+            f'{d_lv:.3e} (limit {INN_TILE_TOL})')
+    log(f'inn: validate whole scene {res[0]["runtime"]:.3f} s/scene (CLI '
+        f'runtime), {res[0]["wall"]:.3f} s CLI wall; --val_tile {INN_TILE} '
+        f'(windows of {INN_TILE + 2 * 22}) {res[INN_TILE]["runtime"]:.3f} '
+        f's/scene; tiled vs whole: result moved at {moved:.2e} of pixels, '
+        f'max |d posterior| {d_post:.3e}, max |d logvar| {d_lv:.3e}; '
+        f'metrics ' + json.dumps({k: res[0][k] for k in METRICS}))
+
+    state, hyper = load_model_state(run)
+    model = build_model(Config.from_dict(hyper))
+    model.load_state_dict(state, strict=True)
+    model.cuda().eval()
+    stacks, _, _ = scene_to_device(HCI4D(val)[0], torch.device('cuda'))
+    with torch.no_grad():
+        direct = model(*stacks)['mean'][0].cpu().numpy()
+    del model, stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve_dir = os.path.join(work, 'serve_inn')
+    os.makedirs(serve_dir)
+    art = os.path.join(serve_dir, 'inn.mmlft')
+    with open(art, 'wb') as f:
+        f.write(export_inference(run, SIZE, SIZE))
+    reset_launches(M)
+    engine = InferenceEngine(art)
+    server = make_server(engine, '127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out = os.path.join(serve_dir, 'out')
+    req = {'scene_dir': os.path.join(val, 'scene_00'), 'out_dir': out}
+    try:
+        port = server.server_address[1]
+        answers = [_http(port, 'POST', '/infer', req) for _ in range(2)]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    del engine
+    for status, resp, _ in answers:
+        if status != 200:
+            raise AssertionError(f'inn serve: {status} {resp}')
+    if read_launches(M) != expected(M):
+        raise AssertionError(f'inn request launched {read_launches(M)}')
+    mean = np.flip(pfm.load(os.path.join(out, 'result.pfm')), 0)
+    diff = float(np.abs(mean - direct).max())
+    if mean.shape != (SIZE, SIZE) or not diff <= SERVE_TOL:
+        raise AssertionError(f'inn serve: result.pfm {mean.shape}, max '
+                             f'|d mean| against the direct forward {diff}')
+    _, resp, http_wall = answers[1]
+    log(f'inn_serve: request after one warm-up: runtime_s '
+        f'{resp["runtime_s"]:.4f} s, HTTP wall {http_wall:.4f} s, max |d '
+        f'mean| against the direct eval forward {diff:.3e} (limit '
+        f'{SERVE_TOL}); INN train {s_step:.3f} s/step, '
+        f'{peak / 2**30:.2f} GiB peak; card {card}')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'k1_launches': k1, 's_step': s_step, 'peak': peak,
+            's_per_scene': res[0]['runtime'],
+            's_per_scene_tiled': res[INN_TILE]['runtime'],
+            'runtime_s': resp['runtime_s']}
+
+
 def random_checkpoint(run: str) -> None:
     """A full-width UPR checkpoint (BatchNorm included) with seeded random
     weights that keep the net input-sensitive, for ``chip_smoke.py
@@ -2191,7 +2497,7 @@ def main() -> int:
     mode = sys.argv[1:]
     if mode not in ([], ['k3'], ['k2'], ['serve'], ['bf16'],
                     ['bf16_trunk'], ['host'], ['unet'], ['probes'], ['dp'],
-                    ['k1'], ['dp4']):
+                    ['k1'], ['dp4'], ['mesh_val'], ['inn']):
         print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
         return 2
 
@@ -2231,6 +2537,11 @@ def main() -> int:
         main_run = phase_main(M, run, val)
         phase_serve(M, run, val, main_run, card)
         return 0
+    if mode == ['mesh_val']:
+        _, val = phase_data(work, n_train=0)
+        random_checkpoint(run)
+        phase_mesh_val(M, run, val, work, phase_main(M, run, val), card)
+        return 0
     train, val = phase_data(work)
     if mode == ['bf16']:
         bf16 = phase_bf16(M, train, val, work, card)
@@ -2249,6 +2560,9 @@ def main() -> int:
         return 0
     if mode == ['dp']:
         phase_dp(M, train, val, work, card)
+        return 0
+    if mode == ['inn']:
+        phase_inn(M, train, val, work, card)
         return 0
     if mode == ['dp4']:
         if torch.cuda.device_count() < 4:
@@ -2306,15 +2620,21 @@ def main() -> int:
     dp = phase_dp(M, train, val, work, card)
     gc.collect()
     torch.cuda.empty_cache()
+    inn = phase_inn(M, train, val, work, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     probes = phase_probes(M, card)
 
     main_run = phase_main(M, run, val)
-    gmm_whole = main_run.pop('gmm')
     gc.collect()
     torch.cuda.empty_cache()
-    tiled_run = phase_main_tiled(M, run, val, gmm_whole,
+    tiled_run = phase_main_tiled(M, run, val, main_run['gmm'],
                                  main_run['metrics'])
-    del gmm_whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_val = phase_mesh_val(M, run, val, work, main_run, card)
+    for key in ('gmm', 'posterior'):
+        del main_run[key]
     log(f'ESE validate: whole scene {main_run["s_per_scene"]:.3f} s/scene, '
         f'{main_run["peak_bytes"] / 2**30:.3f} GiB; --val_tile {VAL_TILE} '
         f'{tiled_run["s_per_scene"]:.3f} s/scene, '
@@ -2340,6 +2660,14 @@ def main() -> int:
         f'{train_host["peak"] / 2**30:.2f} GiB); unet {unet["s_step"]:.3f} '
         f's/step, ESE {unet["s_per_scene"]:.3f} s/scene, served UPR '
         f'runtime_s {unet["runtime_s"]:.4f} s; card {card}')
+    log(f'INN and sharded validation: inn {inn["s_step"]:.3f} s/step, '
+        f'{inn["peak"] / 2**30:.2f} GiB, {inn["s_per_scene"]:.3f} s/scene '
+        f'whole, {inn["s_per_scene_tiled"]:.3f} tiled, served runtime_s '
+        f'{inn["runtime_s"]:.4f} s; ESE --mesh_ensemble 2 '
+        f'{mesh_val["mesh_ensemble"]:.3f} s/scene, --mesh_space 2 '
+        f'{mesh_val["mesh_space"]:.3f} s/scene (two gloo ranks on one card: '
+        f'no scaling number; whole scene {main_run["s_per_scene"]:.3f}); '
+        f'card {card}')
     torch.cuda.synchronize()
 
     kernels = [{
@@ -2347,11 +2675,11 @@ def main() -> int:
         'route': 'cuda',
         'source': 'mmlf_tpu_torch/csrc/window_gather.cu',
         'replaces': 'mmlf_tpu/ops/pallas/window_gather.py:94',
-        # the plain, trunk, U-Net and dp runs (the host run cuts on the
-        # host)
+        # the plain, trunk, U-Net, dp and INN runs (the host run cuts on
+        # the host)
         'launches': k1_launches + trunk_k1 + unet['k1_launches']
         + dp['launches']['window_gather']
-        + dp['one_launches']['window_gather'],
+        + dp['one_launches']['window_gather'] + inn['k1_launches'],
         'max_abs_err': gather['max_abs_err'],
         'ms': gather['ms'],
         'plain_ms': gather['plain_ms'],
@@ -2376,10 +2704,11 @@ def main() -> int:
         'source': 'mmlf_tpu_torch/csrc/posterior.cu',
         'replaces': 'mmlf_tpu/ops/pallas/posterior.py:48',
         # the main path's runs: validate whole and tiled, serve, the bf16
-        # checkpoint's validate and the U-Net checkpoint's
+        # checkpoint's validate, the U-Net checkpoint's and the two ranks'
+        # of --mesh_ensemble and --mesh_space
         'launches': (main_run['launches'] + tiled_run['launches']
                      + serve_run['launches'] + bf16_eval['launches']
-                     + unet['k2_launches']),
+                     + unet['k2_launches'] + mesh_val['launches']),
         'max_abs_err': max([r['max_abs_err'] for r in k2.values()]
                            + [main_run['max_abs_err']]),
         'ms': kern['ms'],

@@ -15,8 +15,11 @@ weights, program), the JSON meta record, then the weights as
 ``torch.save`` of the folded state dict.  The program section is empty.
 Unlike the JAX package's StableHLO artifact (``MMLFEXP1``), which loads
 without the model source, this one is run by this package's code
-(``FeedForward``, ``ensemble_forward`` with the mixture-posterior kernel,
-``tiled_forward``), so it needs ``mmlf_tpu_torch`` to load.  A traced
+(``FeedForward`` or the INN, ``ensemble_forward`` with the
+mixture-posterior kernel, ``tiled_forward``), so it needs
+``mmlf_tpu_torch`` to load.  An INN (``--model_inn``) checkpoint exports
+untiled, in fp32 or u8, with its BatchNorm unfolded; ``val_ensamble`` and
+``tiled`` raise ``ValueError`` for it, as in the JAX package.  A traced
 program (``torch.export``) would need the package all the same: the
 ensemble's posterior is a CUDA kernel launched through ctypes, which a
 graph can only call as a custom op that this package registers.
@@ -39,7 +42,7 @@ import torch
 
 from .config import Config
 from .models.ensemble import ensemble_forward
-from .models.feed_forward import FeedForward
+from .models import build_model
 from .ops.shift import shift_lf
 from .utils.device import resolve_device
 from .utils.fold_bn import fold_batchnorm
@@ -62,7 +65,7 @@ def build_inference(output_dir: str, val_ensamble: bool = False,
     As the validate CLI rebuilds it: the stored hyper-parameters win, with
     the disparity range from the arguments, and BatchNorm is folded into
     the convolutions (the stored config then reads
-    ``model_no_batchnorm``), except in a U-Net net.  ``val_ensamble``
+    ``model_no_batchnorm``), except in a U-Net net and an INN.  ``val_ensamble``
     runs the shift ensemble, whose ``(K, b, H, W)`` member stacks are kept
     only with ``members``.
     ``u8`` takes raw uint8 stacks and a shift, normalized and shifted on
@@ -77,12 +80,20 @@ def build_inference(output_dir: str, val_ensamble: bool = False,
     kwargs.update({'val_disp_min': val_disp_min,
                    'val_disp_max': val_disp_max})
     cfg = Config.from_dict(kwargs)
-    # the U-Net's BatchNorm is not folded (nor are the streams' then), as
-    # in the JAX package
-    fold = not cfg.model_no_batchnorm and not cfg.model_unet
+    if cfg.model_inn:
+        if val_ensamble:
+            raise ValueError('val_ensamble does not apply to an INN '
+                             'checkpoint (validate/cli.py rule)')
+        if tiled:
+            raise ValueError('tiled export does not support the INN '
+                             '(per-image outputs cannot be stitched)')
+    # the U-Net's and the INN's BatchNorm are not folded (nor are the
+    # streams' then), as in the JAX package
+    fold = not cfg.model_no_batchnorm and not cfg.model_unet and \
+        not cfg.model_inn
     if fold:
         cfg = Config.from_dict({**cfg.to_dict(), 'model_no_batchnorm': True})
-    model = FeedForward.from_config(cfg)      # raises for unported models
+    model = build_model(cfg)        # raises for --model_invertible
     model.load_state_dict(fold_batchnorm(state) if fold else state,
                           strict=True)
     model.eval()
@@ -123,7 +134,7 @@ def build_inference(output_dir: str, val_ensamble: bool = False,
     return model, meta
 
 
-def inference_fn(model: FeedForward, meta: dict):
+def inference_fn(model: torch.nn.Module, meta: dict):
     """The inference program of ``meta`` over ``model``, on the model's
     device: ``fn(h, v, i, d[, shift]) -> output dict``.
 
@@ -230,7 +241,7 @@ def load_exported(path_or_bytes, device='cuda'):
     state = torch.load(io.BytesIO(blob[HEAD + n_meta:HEAD + n_meta +
                                        n_weights]),
                        map_location='cpu', weights_only=True)
-    model = FeedForward.from_config(Config.from_dict(meta['config']))
+    model = build_model(Config.from_dict(meta['config']))
     model.load_state_dict(state, strict=True)
     fn = inference_fn(model.to(dev).eval(), meta)
     if 'height' not in meta:

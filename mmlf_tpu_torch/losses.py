@@ -168,7 +168,23 @@ def improved_multi_uncertainty_l1(output: dict, mpi: torch.Tensor,
     return _masked_mean((loss + loss_oor) / 2.0, mask)
 
 
-def information_bottleneck(output, target, beta: float):
-    raise NotImplementedError(
-        'information_bottleneck needs the INN, which is not ported to '
-        'mmlf_tpu_torch yet (ROADMAP.md, Queue 1 item 7: the INN)')
+def information_bottleneck(output: dict, target: torch.Tensor,
+                           beta: float) -> torch.Tensor:
+    """The INN's information-bottleneck loss (``models/inn.py``).
+
+    ``dists`` and the one-hot ``target`` are channel-last ``(b, H, W,
+    K)``.  The incoming ``jac`` is already normalised by ``dims·H·W`` in
+    the INN forward and is divided by it again here, as in the JAX
+    package (a reference quirk on both sides).  The loss ignores the
+    mask, as the reference's does."""
+    beta_nll = 1.0 / (1.0 + beta)
+    beta_cat_ce = beta / (1.0 + beta)
+    zixels, jac, mu, dists = (output[k] for k in
+                              ('zixels', 'jac', 'mu', 'dists'))
+    h, w = zixels.shape[1], zixels.shape[2]
+    dims = mu.shape[-1]
+    jac = jac.reshape(-1, 1, 1) / (dims * w * h)
+    nll = (-torch.logsumexp(-0.5 * dists, dim=-1) - jac) / dims
+    cat_ce = -torch.sum(torch.log_softmax(-0.5 * dists, dim=-1) * target,
+                        dim=-1)
+    return beta_nll * torch.mean(nll) + beta_cat_ce * torch.mean(cat_ce)

@@ -65,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.batchnorm import BatchNorm2d, recomputing
 from ..ops.codecs import bin_centers, class_to_reg
+from .invertible import NOT_SUPPORTED_MSG
 from .pallas_trunk import trunk_forward
 from .unet import UNet
 
@@ -165,12 +166,11 @@ class FeedForward(nn.Module):
 
     @classmethod
     def from_config(cls, cfg) -> 'FeedForward':
-        for flag, item in (('model_inn', 'the INN'),
-                           ('model_invertible', 'the INN')):
-            if getattr(cfg, flag, False):
-                raise NotImplementedError(
-                    f'{flag} is not ported to mmlf_tpu_torch yet '
-                    f'(ROADMAP.md, Queue 1: {item})')
+        if getattr(cfg, 'model_invertible', False):
+            raise NotImplementedError(NOT_SUPPORTED_MSG)
+        if getattr(cfg, 'model_inn', False):
+            raise ValueError('an INN config builds models/inn.INN '
+                             '(models.build_model)')
         return cls(ksize=cfg.model_ksize, in_blocks=cfg.model_in_blocks,
                    out_blocks=cfg.model_out_blocks, chs=cfg.model_chs,
                    views=cfg.model_views, cross=cfg.model_cross,

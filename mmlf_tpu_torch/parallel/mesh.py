@@ -1,7 +1,9 @@
 """Data-parallel ranks: the process group, the rank's slice of a global
 batch, and collectives that keep global-batch semantics under autograd.
 
-The counterpart of ``mmlf_tpu/parallel/mesh.py`` for ``--mesh_data``.  The
+The counterpart of ``mmlf_tpu/parallel/mesh.py`` for ``--mesh_data``,
+and (``member_share``, ``row_share``, ``gather_dim``) for the validate
+CLI's ``--mesh_ensemble`` and ``--mesh_space``.  The
 JAX package shards the global batch over a ``data`` mesh and lets XLA keep
 its semantics: the loss is the global batch's, BatchNorm statistics are
 global (a batch-axis mean under ``jit``), and gradients come out summed
@@ -91,6 +93,47 @@ def shard_batch(batch, r: int, n_ranks: int, accum: int = 1):
                        aug)
 
 
+def check_devices(n_ranks: int, device_type: str,
+                  backend: str | None = None) -> None:
+    """Raise ``ValueError`` when ``n_ranks`` ranks need more devices than
+    are visible: NCCL runs one rank a GPU (the JAX package's ``make_mesh``
+    raises a ``ValueError`` when the mesh exceeds the devices).  Gloo
+    ranks may share a GPU, and on the CPU any number runs."""
+    if device_type != 'cuda' or (backend or 'nccl') != 'nccl':
+        return
+    have = torch.cuda.device_count()
+    if n_ranks > have:
+        raise ValueError(f'a mesh of {n_ranks} devices exceeds the {have} '
+                         f'visible GPU(s)')
+
+
+def member_share(k: int, r: int, n_ranks: int) -> tuple:
+    """Rank ``r``'s contiguous share of a member grid of ``k`` padded to a
+    multiple of ``n_ranks``: ``(start, stop, per)`` with ``per =
+    ceil(k / n_ranks)`` slots from ``r·per``, of which the members
+    ``[start, stop)`` are real (the rest are the JAX package's dummy
+    members: logvar +inf, posterior weight 0)."""
+    per = -(-k // n_ranks)
+    start = min(r * per, k)
+    return start, min(start + per, k), per
+
+
+def row_share(h: int, r: int, n_ranks: int, halo: int,
+              align: int = 1) -> tuple:
+    """Rank ``r``'s rows of a scene of ``h`` rows split evenly over
+    ``n_ranks`` (the JAX package's ``space`` sharding, which needs ``h``
+    divisible: ``ValueError`` otherwise): ``(r0, r1, s0, s1)``, the rows
+    ``[r0, r1)`` it keeps and its slab ``[r0 - halo, r1 + halo) ∩ [0,
+    h)``, its ends widened to multiples of ``align``."""
+    if h % n_ranks:
+        raise ValueError(f'a scene of {h} rows does not split evenly over '
+                         f'{n_ranks} devices')
+    per = h // n_ranks
+    r0, r1 = r * per, (r + 1) * per
+    return (r0, r1, max(0, (r0 - halo) // align * align),
+            min(h, -(-(r1 + halo) // align) * align))
+
+
 def _on_backend(t: torch.Tensor, op) -> torch.Tensor:
     """Run the in-place collective ``op`` on ``t`` (on a host copy under
     gloo for a CUDA tensor); returns the result."""
@@ -154,6 +197,15 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
     objective from the gathered tensor, so its own rows' cotangent is the
     global one."""
     return t if world() == 1 else _AllGather.apply(t)
+
+
+@torch.no_grad()
+def gather_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated on ``dim`` in rank
+    order, no autograd."""
+    if world() == 1:
+        return t
+    return all_gather(t.movedim(dim, 0)).movedim(0, dim)
 
 
 def sum_gradients(params) -> None:

@@ -5,9 +5,10 @@ reference), with the same defaults:
 Adds ``--device`` (default ``cuda``; raises when CUDA is absent, pass
 ``cpu`` to run on the CPU) and drops ``--jax_cache``, which has no meaning
 here.  ``--mesh_data N`` starts N ranks of its own (``train/loop.train``),
-so the command line is the JAX package's.  Flags of ``mmlf_tpu.train.cli``
-that the port does not run yet stay and raise NotImplementedError, naming
-their ROADMAP.md entry (``train/loop.check_ported``).
+so the command line is the JAX package's.  ``--model_inn`` trains the
+invertible network (``models/inn.py``); ``--model_invertible`` raises
+NotImplementedError('INNs are not supported anymore'), as the JAX package
+and the reference do (``train/loop.check_ported``).
 """
 
 import sys
@@ -109,8 +110,9 @@ from .loop import train
               help='on SIGTERM (preemption) checkpoint the current '
                    'step and exit cleanly; resume with --train_resume')
 @click.option('--model_inn', is_flag=True,
-              help='the working invertible network of mmlf_tpu (not '
-                   'ported: raises)')
+              help='the working invertible network of mmlf_tpu (the '
+                   'reference\'s --model_invertible is dead upstream and '
+                   'fails identically here; this trains the real INN)')
 @click.option('--device', default='cuda',
               help='Torch device to run on (default cuda; raises when CUDA '
                    'is absent — pass cpu to run on the CPU).')

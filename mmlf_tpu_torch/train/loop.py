@@ -58,8 +58,14 @@ levels of the scene pyramid in bfloat16 (K1 cuts bf16 windows), and
 (``--cache_bf16`` does nothing on the host pipeline, as in the JAX
 package).  ``--model_unet`` replaces the out_net by the U-Net
 (``models/unet.py``); ``--pallas_trunk`` is then ignored, as in the JAX
-package.  Not ported (raises NotImplementedError, naming its ROADMAP.md
-entry): ``--model_inn``.
+package.  ``--model_inn`` trains the invertible network
+(``models/inn.py``) on the information-bottleneck loss against
+``reg_to_class`` targets over ``cfg.steps`` bins (train and val loss),
+from the device cache with K1 or from the host pipeline as any model;
+``--pallas_trunk`` and ``--remat`` do nothing for it and
+``--train_accum_exact`` is refused, as in the JAX package; under
+``--mesh_data`` each rank gathers ``dists`` and ``jac`` for the global
+loss.  ``--model_invertible`` raises, as upstream.
 """
 
 from __future__ import annotations
@@ -83,9 +89,10 @@ from ..data.pipeline import (DevicePipeline, PackedCache, TrainPipeline,
                              augment_host_batch, batch_to_device,
                              chunk_slice, gather_augment, window_size)
 from ..losses import (improved_multi_uncertainty_l1, improved_uncertainty_l1,
-                      logvar_anchor, masked_cross_entropy, masked_l1,
-                      multi_masked_l1)
-from ..models.feed_forward import FeedForward, init_default_
+                      information_bottleneck, logvar_anchor,
+                      masked_cross_entropy, masked_l1, multi_masked_l1)
+from ..models import build_model, init_model_
+from ..models.invertible import NOT_SUPPORTED_MSG
 from ..ops.codecs import mpi_to_weights, reg_to_class
 from ..ops.masks import create_mask_margin
 from ..parallel import mesh
@@ -95,23 +102,15 @@ from .checkpoint import has_checkpoint, load_checkpoint, save_checkpoint
 
 LOG_HEADER = (f'{"iter":>7}, loss_train,   loss_val,        mse, '
               'badpix_007, time_elapsed')
-NOT_SUPPORTED_MSG = 'INNs are not supported anymore'
 # the JAX package trains from its host pipeline from this cache size on
 DEVICE_CACHE_LIMIT = 8 << 30
 
 
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{flag} is not ported to mmlf_tpu_torch yet (ROADMAP.md, {item}); '
-        f'use python -m mmlf_tpu.train.cli for it')
-
-
 def check_ported(cfg: Config) -> None:
-    """Raise for every option of ``mmlf_tpu.train`` this port lacks."""
+    """Raise for ``--model_invertible``, dead upstream, as the JAX package
+    raises."""
     if cfg.model_invertible:
         raise NotImplementedError(NOT_SUPPORTED_MSG)
-    if cfg.model_inn:
-        raise _not_ported('--model_inn', 'Queue 1 item 7: the INN')
 
 
 def lr_schedule(cfg: Config, step: int) -> float:
@@ -141,11 +140,12 @@ def prepare_targets(cfg: Config, gt, mpi, mask):
     mask = mask.to(torch.int32) * margin.to(torch.int32)
 
     gt_classes = None
-    if cfg.model_discrete:
-        if cfg.train_loss_multimodal:
+    if cfg.model_discrete or cfg.model_inn:
+        if cfg.train_loss_multimodal and not cfg.model_inn:
             gt_classes = mpi_to_weights(mpi, cfg.val_disp_min,
                                         cfg.val_disp_max, cfg.steps)
         else:
+            # the INN's cluster count is cfg.steps
             gt_classes = reg_to_class(gt, cfg.val_disp_min,
                                       cfg.val_disp_max, cfg.steps)
 
@@ -177,6 +177,9 @@ def compute_loss(cfg: Config, output: dict, gt, mpi, gt_classes, mask,
         w = min(np.float32(step) / np.float32(cfg.train_logvar_warmup),
                 np.float32(1.0))
         output = dict(output, logvar=output['logvar'] * float(w))
+    if cfg.model_inn:
+        # the IB loss ignores the mask, as the reference's does
+        return information_bottleneck(output, gt_classes, cfg.train_beta)
     if cfg.model_uncert:
         if cfg.train_loss_multimodal:
             return anchor + improved_multi_uncertainty_l1(
@@ -194,6 +197,10 @@ def compute_loss(cfg: Config, output: dict, gt, mpi, gt_classes, mask,
 
 def val_loss(cfg: Config, output: dict, gt, mpi, mask):
     """Validation loss of the head."""
+    if cfg.model_inn:
+        target = reg_to_class(gt, cfg.val_disp_min, cfg.val_disp_max,
+                              cfg.steps)
+        return information_bottleneck(output, target, cfg.train_beta)
     if cfg.model_uncert:
         if cfg.train_loss_multimodal:
             return improved_multi_uncertainty_l1(output, mpi, mask)
@@ -234,7 +241,7 @@ def with_mpi(cfg: Config) -> bool:
     return bool(cfg.train_loss_multimodal or cfg.train_loss_strongest)
 
 
-def microbatch_loss(cfg: Config, model: FeedForward,
+def microbatch_loss(cfg: Config, model: torch.nn.Module,
                     cache: Optional[PackedCache], chunk, step: int):
     """Input path + forward + loss of one microbatch: a ``DeviceBatch`` cut
     from ``cache`` by K1, or (no cache) a host ``Batch`` already on the
@@ -250,9 +257,15 @@ def microbatch_loss(cfg: Config, model: FeedForward,
             with_mpi=with_mpi(cfg))
     output = model(h, v, i, d, folded=True)
     if mesh.world() > 1:
-        output = {k: mesh.all_gather(output[k])
-                  for k in ('mean', 'logvar', 'scores')
-                  if output.get(k) is not None}
+        if cfg.model_inn:
+            # the IB loss reads every sample's dists and jac, and zixels'
+            # H, W and mu, the same on every rank
+            output = dict(output, dists=mesh.all_gather(output['dists']),
+                          jac=mesh.all_gather(output['jac']))
+        else:
+            output = {k: mesh.all_gather(output[k])
+                      for k in ('mean', 'logvar', 'scores')
+                      if output.get(k) is not None}
         gt, mask = mesh.all_gather(gt), mesh.all_gather(mask)
         mpi = None if mpi is None else mesh.all_gather(mpi)
     gt, mpi, gt_classes, mask, mask_padding = prepare_targets(cfg, gt, mpi,
@@ -262,7 +275,7 @@ def microbatch_loss(cfg: Config, model: FeedForward,
     return loss, torch.sum(mask).float()
 
 
-def train_step(cfg: Config, model: FeedForward, optimizer, cache, batch,
+def train_step(cfg: Config, model: torch.nn.Module, optimizer, cache, batch,
                step: int, bn_train: bool = True) -> torch.Tensor:
     """One optimizer step over ``batch`` (``train_accum`` microbatches): a
     ``DeviceBatch`` of ``cache``, or a host ``Batch`` on the device when
@@ -278,7 +291,9 @@ def train_step(cfg: Config, model: FeedForward, optimizer, cache, batch,
         raise ValueError(f'batch {n} does not split into {accum} '
                          f'microbatches')
     size = n // accum
-    model.train(bn_train)
+    # an INN's subnet BatchNorm runs on its running statistics under
+    # --model_no_batchnorm, as the JAX step applies it with train=False
+    model.train(bn_train and not (cfg.model_inn and cfg.model_no_batchnorm))
     optimizer.zero_grad(set_to_none=True)
 
     total = n_total = 0.0
@@ -313,7 +328,7 @@ def train_step(cfg: Config, model: FeedForward, optimizer, cache, batch,
     return total
 
 
-def make_optimizer(model: FeedForward) -> torch.optim.Adam:
+def make_optimizer(model: torch.nn.Module) -> torch.optim.Adam:
     """Adam with torch's moments; the LR is written before each step."""
     return torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999),
                             eps=1e-8)
@@ -325,7 +340,7 @@ class TrainState:
     completed steps; after a data-parallel run, the final checkpoint's
     model and optimizer and each rank's report (``ranks``: its steps and
     the kernel launches it counted)."""
-    model: FeedForward
+    model: torch.nn.Module
     optimizer: torch.optim.Adam
     step: int
     ranks: Optional[list] = None
@@ -385,7 +400,7 @@ def train_ranks(cfg: Config, output_dir: str, n_ranks: int, device='cuda',
                           device_type=dev.type, backend=backend,
                           timeout=timeout)
     ckpt = load_checkpoint(output_dir)
-    model = FeedForward.from_config(cfg)
+    model = build_model(cfg)
     model.load_state_dict(ckpt['model_state_dict'], strict=True)
     model.to(dev)
     optimizer = make_optimizer(model)
@@ -399,7 +414,7 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
     """Run the training loop; returns the final state.
 
     ``cfg.train_steps > 0`` bounds the loop; 0 runs forever like the
-    reference.  ``initial_state`` (a state dict of the port's FeedForward,
+    reference.  ``initial_state`` (a state dict of the port's model,
     e.g. ``utils/convert.state_dict_from_jax`` of a JAX init) replaces the
     seeded initialization of a fresh run.  With ``--mesh_data`` (see
     ``data_parallel_size``) the run goes to ``train_ranks``; inside a rank
@@ -454,11 +469,11 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
     # validates
     valset = HCI4D(cfg.train_valset, cache=True) if lead else None
 
-    model = FeedForward.from_config(cfg)
+    model = build_model(cfg)
     if initial_state is not None:
         model.load_state_dict(initial_state, strict=True)
     else:
-        init_default_(model, cfg.train_seed)
+        init_model_(model, cfg.train_seed)
     model.to(dev)
     mesh.broadcast_module(model)
     optimizer = make_optimizer(model)
@@ -602,7 +617,7 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
 
 
 @torch.no_grad()
-def _validate(cfg: Config, model: FeedForward, valset: HCI4D, scene_eval,
+def _validate(cfg: Config, model: torch.nn.Module, valset: HCI4D, scene_eval,
               output_dir: str, dev):
     """Full-scene eval of every val scene (running BN statistics); writes
     the artifacts and returns the mean (loss_val, mse, badpix)."""

@@ -10,6 +10,15 @@ the JAX package's variable tree onto the same keys:
   ``batch_stats/in_net_hv/block<b>/bn`` → ``in_net_hv.<b>.3`` (BatchNorm)
   ``in_net_id``, ``out_net``            → likewise
 
+for an INN (``--model_inn``, ``models/inn.py``; flax names the blocks of
+a list ``<net>_<b>``):
+
+  ``params/<net>_<b>/{act_scale,act_offset,perm}`` → ``<net>.<b>.…``
+  ``params/<net>_<b>/s{1,2}/conv{1,2}``  → ``<net>.<b>.s{1,2}.conv{1,2}``
+  ``params/<net>_<b>/s{1,2}/bn`` +
+  ``batch_stats/…``                      → ``<net>.<b>.s{1,2}.bn``
+  ``params/mu``                          → ``mu``
+
 and, for a ``--model_unet`` net, the U-Net out_net (``models/unet.py``;
 ``out_net.`` before each key on the right):
 
@@ -86,6 +95,45 @@ def _unet_state(params: dict, stats: dict, sd: dict,
         params['last'])
 
 
+def coupling_block_state(p: dict, st, prefix: str = '') -> dict:
+    """One JAX ``AIOCouplingBlock``'s params ``p`` and batch stats ``st``
+    (None for a gradient tree) under the port's keys, each after
+    ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for leaf in ('act_scale', 'act_offset', 'perm'):
+        sd[f'{prefix}{leaf}'] = _tensor(p[leaf])
+    for sub in ('s1', 's2'):
+        for conv in ('conv1', 'conv2'):
+            sd[f'{prefix}{sub}.{conv}.weight'], \
+                sd[f'{prefix}{sub}.{conv}.bias'] = _conv(p[sub][conv])
+        bn = f'{prefix}{sub}.bn'
+        sd[f'{bn}.weight'] = _tensor(p[sub]['bn']['scale'])
+        sd[f'{bn}.bias'] = _tensor(p[sub]['bn']['bias'])
+        if st is not None:
+            sd[f'{bn}.running_mean'] = _tensor(st[sub]['bn']['mean'])
+            sd[f'{bn}.running_var'] = _tensor(st[sub]['bn']['var'])
+        sd[f'{bn}.num_batches_tracked'] = torch.tensor(0, dtype=torch.int64)
+    return sd
+
+
+def _inn_state(variables: dict, cfg: dict) -> Dict[str, torch.Tensor]:
+    """The JAX INN's variables under the port's ``models/inn.py`` keys."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    sd: Dict[str, torch.Tensor] = {}
+    nets = [('in_net_hv', cfg['model_in_blocks'])]
+    if not cfg.get('model_cross', False):
+        nets.append(('in_net_id', cfg['model_in_blocks']))
+    nets.append(('out_net', cfg['model_out_blocks']))
+    for name, n_blocks in nets:
+        for b in range(n_blocks):
+            sd.update(coupling_block_state(params[f'{name}_{b}'],
+                                           stats.get(f'{name}_{b}'),
+                                           f'{name}.{b}.'))
+    sd['mu'] = _tensor(params['mu'])
+    return sd
+
+
 def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
     """``{'params', 'batch_stats'}`` of ``mmlf_tpu.models.FeedForward``
     (numpy leaves) → the port's state dict.
@@ -95,8 +143,7 @@ def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
     """
     cfg = cfg if isinstance(cfg, dict) else cfg.to_dict()
     if cfg.get('model_inn'):
-        raise NotImplementedError('INN weights are not ported yet '
-                                  '(ROADMAP.md, Queue 1: the INN)')
+        return _inn_state(variables, cfg)
     params = variables['params']
     stats = variables.get('batch_stats', {})
     sd: Dict[str, torch.Tensor] = {}

@@ -31,8 +31,20 @@ posterior kernel and the metrics stay float32.  Reads the JAX package's
 ``checkpoint.msgpack`` (with its ``hyper_parameters.json``) first, as
 ``mmlf_tpu.validate.cli`` does, else a reference-format ``checkpoint.pt``.
 A ``--model_unet`` checkpoint runs with its BatchNorm unfolded, as in the
-JAX package.  Not ported yet (each raises NotImplementedError):
-``--mesh_space``, ``--mesh_ensemble``, INN / invertible checkpoints.
+JAX package, and so does an INN (``--model_inn``) checkpoint, whose
+posterior is its cluster grid: ``--model_discrete`` and
+``--val_ensamble`` are usage errors for it, and its NLL is the discrete
+one when it has 108 clusters (the Laplace one under ``--model_cross``).
+``--model_invertible`` is accepted and ignored, as the JAX CLI does.
+
+``--mesh_ensemble N`` (with ``--val_ensamble``) splits the members over N
+ranks (``ensemble_forward_sharded``); ``--mesh_space N`` splits each
+scene's rows (``validate/spatial.py``).  Either starts N processes
+(``run_validation_ranks``: NCCL with one rank a GPU, gloo on the CPU;
+more ranks than GPUs is a ``ValueError``, as the JAX package's mesh
+raises); rank 0 loads, scores, writes the artifacts and prints, the
+others compute and run the same collectives.  Their outputs are the
+whole-scene run's within float rounding.
 ``--jax_cache`` has no counterpart: nothing is compiled per scene here.
 """
 
@@ -51,23 +63,21 @@ from ..config import Config
 from ..data import transforms as T
 from ..data.hci4d import HCI4D, pad_mpi
 from ..losses import masked_badpix, masked_mse
-from ..models.ensemble import ensemble_forward, ensemble_grid
-from ..models.feed_forward import FeedForward
+from ..models import build_model
+from ..models.ensemble import (ensemble_forward, ensemble_forward_sharded,
+                               ensemble_grid)
 from ..ops.codecs import mpi_to_weights
 from ..ops.masks import create_mask_margin
+from ..parallel import mesh
 from ..train.checkpoint import CKPT_MSGPACK, CKPT_PT, load_checkpoint_raw
 from ..utils.convert import load_checkpoint_pt, state_dict_from_jax
 from ..utils.device import resolve_device
 from ..utils.fold_bn import fold_batchnorm
 from . import calibrate
 from . import posteriors as P
-from .tiling import UNET_MSG, receptive_radius, tiled_forward
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} is not ported to mmlf_tpu_torch yet (ROADMAP.md, {item}); '
-        f'use python -m mmlf_tpu.validate.cli for it')
+from .spatial import SlabForward, gather_rows
+from .tiling import (UNET_ALIGN, UNET_MSG, receptive_radius, tiled_forward,
+                     unet_halo)
 
 
 def load_model_state(output_dir: str):
@@ -90,26 +100,52 @@ def load_model_state(output_dir: str):
 def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
                     val_disp_min: float, val_disp_max: float,
                     val_disp_step: float, val_loss_margin: int,
-                    n_bins: int = 108, val_tile: int = 0):
+                    n_bins: int = 108, val_tile: int = 0,
+                    mesh_ensemble: int = 1, mesh_space: int = 1):
     """Forward + every metric for one scene.
 
     Returns ``scene_eval(h, v, i, d, gt, mpi, offsets=None) -> (output,
     metrics)`` on device tensors (batch-first stacks, gt ``(b, H, W)``,
     MPI ``(b, K, H, W, 5)``); metrics are 0-d tensors.  ``val_tile > 0``
     runs the forward tile by tile (``tiling.tiled_forward``): exact for
-    BASE/UPR/DPP; for the ensemble the sub-pixel shift's circular wrap
-    lands in the tile window's edge instead of the image border, as in the
-    JAX package.
+    BASE/UPR/DPP and the INN; for the ensemble the sub-pixel shift's
+    circular wrap lands in the tile window's edge instead of the image
+    border, as in the JAX package.  ``mesh_ensemble > 1`` splits the
+    ensemble's members over the ranks of the process group
+    (``ensemble_forward_sharded``), ``mesh_space > 1`` each scene's rows
+    (``spatial.SlabForward``); the outputs are then the whole scene's on
+    every rank, and ``metrics`` is None except on rank 0.
     """
+    inn = bool(kwargs.get('model_inn'))
+    halo = receptive_radius(cfg.model_ksize, cfg.model_in_blocks,
+                            cfg.model_out_blocks)
+    if mesh_space > 1:
+        # the ensemble's members shift the whole scene before the slab is
+        # cut (SlabForward is its model); a U-Net's slabs keep the scene's
+        # pooling grid and cover its receptive field
+        if cfg.model_unet:
+            slab = SlabForward(model, unet_halo(cfg.model_ksize,
+                                                cfg.model_in_blocks),
+                               align=UNET_ALIGN)
+        else:
+            slab = SlabForward(model, halo, probe=inn)
 
     def net_forward(h, v, i, d, offsets):
+        if mesh_ensemble > 1:
+            return ensemble_forward_sharded(
+                model, h, v, i, d, val_disp_min, val_disp_max,
+                val_disp_step, member_offsets=offsets)
+        fn = slab if mesh_space > 1 else model
         if val_ensamble:
-            return ensemble_forward(model, h, v, i, d,
-                                    disp_min=val_disp_min,
-                                    disp_max=val_disp_max,
-                                    disp_step=val_disp_step,
-                                    member_offsets=offsets)
-        return model(h, v, i, d)
+            out = ensemble_forward(fn, h, v, i, d, disp_min=val_disp_min,
+                                   disp_max=val_disp_max,
+                                   disp_step=val_disp_step,
+                                   member_offsets=offsets)
+        else:
+            out = fn(h, v, i, d)
+        if mesh_space > 1:
+            out = gather_rows(out, h.shape[2] // mesh_space, h.shape[3])
+        return out
 
     def metrics_from_output(output, gt, mpi):
         mask = create_mask_margin(gt.shape, val_loss_margin, gt.device)
@@ -132,7 +168,13 @@ def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
                                      cfg.val_disp_max, model.steps)
             dist = output['posterior']
             nll_eval = P.nll_discrete(weights, output['posterior'])
-        elif kwargs.get('model_uncert'):
+        elif inn and output['posterior'].shape[-1] == n_bins:
+            # the INN's posterior is over linspace(min, max, dims), the
+            # 108-bin report's grid when dims == 108
+            dist = output['posterior']
+            nll_eval = P.nll_discrete(dist_gt, output['posterior'])
+        elif kwargs.get('model_uncert') or inn:
+            # an INN of another cluster count (--model_cross: 54)
             dist = P.laplace_to_discrete(n_bins, cfg.val_disp_min,
                                          cfg.val_disp_max, output['mean'],
                                          output['logvar'])
@@ -151,8 +193,6 @@ def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
         return {'mse': mse, 'bad_pix': bad_pix, 'nll': nll_eval,
                 'kld': kld, 'kld_mm': kld_mm, 'kld_um': kld_um}
 
-    halo = receptive_radius(cfg.model_ksize, cfg.model_in_blocks,
-                            cfg.model_out_blocks)
     if val_ensamble:       # the ensemble's shift reaches ceil(disp)+1 further
         halo += int(np.ceil(max(abs(val_disp_min), abs(val_disp_max)))) + 1
 
@@ -161,9 +201,11 @@ def make_scene_eval(model, cfg: Config, kwargs: dict, val_ensamble: bool,
         if val_tile > 0:
             output = tiled_forward(
                 lambda *win: net_forward(*win, offsets), (h, v, i, d),
-                val_tile, halo)
+                val_tile, halo, probe=inn)
         else:
             output = net_forward(h, v, i, d, offsets)
+        if mesh.rank() != 0:
+            return output, None
         return output, metrics_from_output(output, gt, mpi)
 
     return scene_eval
@@ -179,25 +221,72 @@ def scene_to_device(sample, dev):
             torch.from_numpy(pad_mpi(mpi)[None]).to(dev))
 
 
+def _rank_validate(output_dir, dataset, kwargs, device_type) -> dict:
+    """One rank of ``run_validation_ranks`` (in its own process and
+    group): rank 0's metric averages, and every rank's launch counts."""
+    from ..ops.kernels import launch_counts
+    dev = mesh.rank_device(device_type, mesh.rank())
+    result = run_validation(output_dir, dataset, device=dev, **kwargs)
+    return {'rank': mesh.rank(), 'result': result,
+            'launches': launch_counts()}
+
+
+def run_validation_ranks(output_dir, dataset, n_ranks: int, device='cuda',
+                         backend: str | None = None,
+                         timeout: float | None = None, **kwargs) -> dict:
+    """``run_validation`` with ``--mesh_ensemble`` or ``--mesh_space`` on
+    ``n_ranks`` new processes (``parallel/mesh.launch``): NCCL with one
+    rank a GPU by default on CUDA, gloo on the CPU; ``backend='gloo'``
+    lets several ranks share one GPU (which gives no scaling).  Rank 0
+    loads, scores, writes the artifacts and prints; the others compute
+    their members or rows and run the same collectives.  Returns rank 0's
+    metric averages with ``ranks``: each rank's launch counts."""
+    dev = resolve_device(device)
+    mesh.check_devices(n_ranks, dev.type, backend)
+    reports = mesh.launch(_rank_validate, n_ranks,
+                          (output_dir, dataset, kwargs, dev.type),
+                          device_type=dev.type, backend=backend,
+                          timeout=timeout)
+    return dict(reports[0]['result'],
+                ranks=[{'rank': r['rank'], 'launches': r['launches']}
+                       for r in reports])
+
+
 def run_validation(output_dir, dataset, model_discrete=False,
                    val_loss_margin=15, val_ensamble=False,
                    val_disp_step=0.1, val_disp_min=-3.5, val_disp_max=3.5,
                    train_shift=0.0, val_tile=0, mesh_space=1,
                    mesh_ensemble=1, val_recalibrate='', val_cal_scenes=2,
                    val_save_calibration='', device='cuda'):
-    """Programmatic entry (the CLI body); returns the metric averages."""
+    """Programmatic entry (the CLI body); returns the metric averages.
+
+    With ``mesh_ensemble`` or ``mesh_space`` above 1 it starts that many
+    ranks (``run_validation_ranks``); inside a rank's group it is that
+    rank's run."""
     # the three scene-scale extensions are mutually exclusive (each owns
     # the devices / the forward in a different way)
     if sum([val_tile > 0, mesh_space > 1, mesh_ensemble > 1]) > 1:
         raise click.UsageError('--val_tile, --mesh_space and '
                                '--mesh_ensemble are mutually exclusive')
+    if mesh_ensemble > 1 and not val_ensamble:
+        raise click.UsageError('--mesh_ensemble requires --val_ensamble')
+    n_ranks = max(mesh_space, mesh_ensemble)
+    kw = dict(model_discrete=model_discrete, val_loss_margin=val_loss_margin,
+              val_ensamble=val_ensamble, val_disp_step=val_disp_step,
+              val_disp_min=val_disp_min, val_disp_max=val_disp_max,
+              train_shift=train_shift, val_tile=val_tile,
+              mesh_space=mesh_space, mesh_ensemble=mesh_ensemble,
+              val_recalibrate=val_recalibrate, val_cal_scenes=val_cal_scenes,
+              val_save_calibration=val_save_calibration)
+    if n_ranks > 1 and mesh.world() == 1:
+        return run_validation_ranks(output_dir, dataset, n_ranks,
+                                    device=device, **kw)
+    if mesh.world() != n_ranks:
+        raise ValueError(f'a group of {mesh.world()} ranks runs '
+                         f'--mesh_ensemble/--mesh_space {n_ranks}')
     dev = resolve_device(device)
-    if mesh_space > 1:
-        raise _not_ported('--mesh_space',
-                          'Queue 1 item 4: data parallel, validation half')
-    if mesh_ensemble > 1:
-        raise _not_ported('--mesh_ensemble',
-                          'Queue 1 item 4: data parallel, validation half')
+    lead = mesh.rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     state, kwargs = load_model_state(output_dir)
     # stored config + whitelisted CLI overrides
@@ -213,23 +302,36 @@ def run_validation(output_dir, dataset, model_discrete=False,
     valset = HCI4D(dataset, transform=transform)
 
     # inference is eval-mode only: fold BatchNorm into the convolutions,
-    # except in a U-Net net (not foldable), as the JAX package does
-    fold = not cfg.model_no_batchnorm and not cfg.model_unet
+    # except in a U-Net net and an INN (not foldable), as the JAX package
+    # does
+    fold = not cfg.model_no_batchnorm and not cfg.model_unet \
+        and not cfg.model_inn
     if fold:
         cfg = Config.from_dict({**cfg.to_dict(), 'model_no_batchnorm': True})
-    model = FeedForward.from_config(cfg)      # raises for unported models
+    if cfg.model_inn:
+        kwargs['model_inn'] = True
+        # the JAX CLI checks the stored val_ensamble only, and its
+        # --val_ensamble then fails with a TypeError (ROADMAP Queue 3)
+        if kwargs.get('model_discrete') or kwargs.get('val_ensamble') or \
+                val_ensamble:
+            raise click.UsageError(
+                '--model_discrete/--val_ensamble do not apply to an INN '
+                'checkpoint (its posterior is already the cluster grid)')
+    model = build_model(cfg)
     model.load_state_dict(fold_batchnorm(state) if fold else state,
                           strict=True)
     model.to(dev).eval()
-    print('Number of parameters:',
-          sum(p.numel() for p in model.parameters()))
+    say('Number of parameters:', sum(p.numel() for p in model.parameters()))
 
     n_bins = 108
     scene_eval = make_scene_eval(model, cfg, kwargs, val_ensamble,
                                  val_disp_min, val_disp_max, val_disp_step,
-                                 val_loss_margin, n_bins, val_tile)
+                                 val_loss_margin, n_bins, val_tile,
+                                 mesh_ensemble=mesh_ensemble,
+                                 mesh_space=mesh_space)
 
     # --- ESE logvar-calibration machinery (validate/calibrate.py) ---
+    # every rank fits the same offsets from the same gathered members
     shifts_grid = None
     member_offsets = None
     if val_ensamble:
@@ -239,7 +341,7 @@ def run_validation(output_dir, dataset, model_discrete=False,
             calset = HCI4D(val_recalibrate, transform=transform)
             cal_stats = []
             for j in range(min(val_cal_scenes, len(calset.scenes))):
-                print(f'Calibrating on scene {j} of {val_recalibrate}...')
+                say(f'Calibrating on scene {j} of {val_recalibrate}...')
                 sample = calset[j]
                 stacks, cgt, cmpi = scene_to_device(sample, dev)
                 out_c, _ = scene_eval(*stacks, cgt, cmpi)
@@ -248,10 +350,10 @@ def run_validation(output_dir, dataset, model_discrete=False,
                                   out_c['logvars'][:, 0].cpu().numpy(),
                                   sample[5], m.numpy()))
             member_offsets = calibrate.fit_member_offsets(cal_stats)
-            print(f'Fitted member logvar offsets: mean '
-                  f'{member_offsets.mean():+.3f}, range '
-                  f'[{member_offsets.min():+.3f}, '
-                  f'{member_offsets.max():+.3f}]')
+            say(f'Fitted member logvar offsets: mean '
+                f'{member_offsets.mean():+.3f}, range '
+                f'[{member_offsets.min():+.3f}, '
+                f'{member_offsets.max():+.3f}]')
     cal_scenes = []
 
     mse_avg = bad_pix_avg = 0.0
@@ -261,13 +363,15 @@ def run_validation(output_dir, dataset, model_discrete=False,
     n_scenes = len(valset.scenes)
 
     for i in range(n_scenes):
-        print(f'Processing scene {i}...')
+        say(f'Processing scene {i}...')
         t_start = time.time()
 
         sample = valset[i]
         gt, index = sample[5], sample[8]
         stacks, gt_t, mpi_t = scene_to_device(sample, dev)
         output, metrics = scene_eval(*stacks, gt_t, mpi_t, member_offsets)
+        if not lead:
+            continue
         metrics = {k: float(v) for k, v in metrics.items()}
 
         means_np = logvars_np = None
@@ -312,6 +416,8 @@ def run_validation(output_dir, dataset, model_discrete=False,
         kld_mm_avg += metrics['kld_mm']
         kld_um_avg += metrics['kld_um']
         nll_eval_avg += nll_eval
+    if not lead:
+        return {}
 
     mse_avg /= n_scenes
     bad_pix_avg /= n_scenes
@@ -357,7 +463,8 @@ def run_validation(output_dir, dataset, model_discrete=False,
 @click.argument('output_dir', type=click.Path(exists=True))
 @click.argument('dataset', type=click.Path(exists=True))
 @click.option('--model_invertible', is_flag=True,
-              help='Use invertible architecture? (not ported: raises)')
+              help='Use invertible architecture? (accepted and ignored, as '
+                   'in mmlf_tpu.validate.cli)')
 @click.option('--model_discrete', is_flag=True,
               help='Discretize disparity output?')
 @click.option('--val_loss_margin', default=15,
@@ -381,11 +488,12 @@ def run_validation(output_dir, dataset, model_discrete=False,
                    'the whole-scene run near the image border (within the '
                    'largest shift plus the receptive radius).')
 @click.option('--mesh_space', default=1, type=int,
-              help='Spatial sharding over devices (not ported: raises '
-                   'unless 1)')
+              help='Split each scene\'s rows over this many ranks (one a '
+                   'GPU; each runs its rows plus a receptive-field halo).')
 @click.option('--mesh_ensemble', default=1, type=int,
-              help='Ensemble members sharded over devices (not ported: '
-                   'raises unless 1)')
+              help='Split the --val_ensamble members over this many ranks '
+                   '(one a GPU; each runs ceil(K/N) members; gathered '
+                   'selection, K2 on the gathered members).')
 @click.option('--val_recalibrate', default=None,
               type=click.Path(exists=True, dir_okay=True, file_okay=False),
               help='Requires --val_ensamble: fit per-member logvar offsets '
@@ -404,8 +512,7 @@ def main(output_dir, dataset, model_invertible, model_discrete,
          val_loss_margin, val_ensamble, val_disp_step, val_disp_min,
          val_disp_max, train_shift, val_tile, mesh_space, mesh_ensemble,
          val_recalibrate, val_cal_scenes, val_save_calibration, device):
-    if model_invertible:
-        raise _not_ported('--model_invertible', 'Queue 1: the INN')
+    # --model_invertible is accepted and ignored, as mmlf_tpu.validate.cli
     return run_validation(output_dir, dataset, model_discrete=model_discrete,
                           val_loss_margin=val_loss_margin,
                           val_ensamble=val_ensamble,

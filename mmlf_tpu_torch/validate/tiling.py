@@ -18,11 +18,15 @@ scene).
 
 Outputs are stitched on their spatial ``(H, W)`` pair, wherever it sits:
 ``(b, H, W, ...)`` heads and the ensemble's member-major ``(K, b, H, W)``
-stacks.  The ported heads (BASE, UPR, DPP, ESE) have no constant-size
-output, so one probe at the window size finds the pair; the JAX package's
-second probe at another window size is needed only once the INN is ported
-(ROADMAP.md Queue 1 item 7), whose ``mu`` can coincide with the window.
-Nothing is stitched on a canvas, so nothing is cropped (the JAX package's
+stacks; outputs with no spatial extent (the INN's per-image ``jac``) come
+back as None.  A constant-size output can match the window: the INN's
+``mu`` is ``(1, 108, 108)`` and its window under ``--val_tile 64`` is 64 +
+2·22 = 108.  ``probe=True`` (the validate CLI sets it for an INN) runs the
+JAX package's second probe: one more forward of the first window cut by 8
+rows and columns, and a pair counts as spatial only if it tracks the
+window at both sizes.  The heads of ``FeedForward`` and the ensemble have
+no constant-size output, so their tiled runs skip that forward.  Nothing
+is stitched on a canvas, so nothing is cropped (the JAX package's
 ``crop_outputs`` has no counterpart).
 """
 
@@ -47,13 +51,50 @@ def receptive_radius(ksize: int, in_blocks: int, out_blocks: int) -> int:
     return 2 * (in_blocks + out_blocks) * (ksize - 1)
 
 
-def spatial_dims(shape, win_sz: int):
-    """Index of the first adjacent ``(win_sz, win_sz)`` pair of ``shape``,
-    or None for an output with no spatial extent."""
+# the U-Net's pooling grid: its four 2x2 max-pools
+UNET_ALIGN = 16
+
+
+def unet_halo(ksize: int, in_blocks: int, depth: int = 5) -> int:
+    """A halo that covers the receptive field of a ``--model_unet`` net,
+    widened to a multiple of ``UNET_ALIGN``: the stream blocks' reach,
+    then per level of scale ``2**l`` two 3×3 convs down (``2·2**l``) and
+    a max-pool (``2**l``), and on the way up a 2×2 transposed conv and two
+    3×3 convs (``3·2**l``): 128 rows at 3 blocks and depth 5."""
+    reach = receptive_radius(ksize, in_blocks, 0) + \
+        sum(2 * 2 ** lv for lv in range(depth)) + \
+        sum(4 * 2 ** lv for lv in range(depth - 1))
+    return -(-reach // UNET_ALIGN) * UNET_ALIGN
+
+
+def spatial_dims(shape, size, shape2=None, size2=None):
+    """Index of the first adjacent pair of ``shape`` equal to ``size`` (an
+    ``(h, w)`` pair, or one int for a square window), or None for an
+    output with no spatial extent.  Given a second probe's ``shape2`` at
+    window ``size2``, the pair must sit at ``size2`` there too."""
+    size = (size, size) if isinstance(size, int) else tuple(size)
     for i in range(len(shape) - 1):
-        if shape[i] == win_sz and shape[i + 1] == win_sz:
+        if tuple(shape[i:i + 2]) == size:
+            if shape2 is not None and tuple(shape2[i:i + 2]) != tuple(size2):
+                continue
             return i
     return None
+
+
+def probe_spatial(apply_fn, window, out: dict, probe: bool = False) -> dict:
+    """``{key: spatial dim or None}`` of ``out = apply_fn(*window)``.  With
+    ``probe``, a second forward on the window less 8 rows and columns
+    keeps only the pairs that track the window size (a window of 8 or
+    less is probed as it is)."""
+    size = tuple(window[0].shape[2:4])
+    out2 = size2 = None
+    if probe and min(size) > 8:
+        size2 = (size[0] - 8, size[1] - 8)
+        out2 = apply_fn(*[None if s is None else s[:, :, :size2[0], :size2[1]]
+                          for s in window])
+    return {k: None if v is None else spatial_dims(
+        v.shape, size, None if out2 is None or out2[k] is None
+        else out2[k].shape, size2) for k, v in out.items()}
 
 
 def tile_positions(h: int, w: int, tile: int, halo: int) -> np.ndarray:
@@ -81,7 +122,8 @@ def tile_positions(h: int, w: int, tile: int, halo: int) -> np.ndarray:
 
 
 @torch.no_grad()
-def tiled_forward(apply_fn, stacks, tile: int, halo: int) -> dict:
+def tiled_forward(apply_fn, stacks, tile: int, halo: int,
+                  probe: bool = False) -> dict:
     """Run ``apply_fn`` over overlapping tiles and stitch the interiors.
 
     :param apply_fn: ``fn(h, v, i, d) -> output dict`` on one window;
@@ -90,17 +132,19 @@ def tiled_forward(apply_fn, stacks, tile: int, halo: int) -> dict:
     :param stacks: four ``(b, n, H, W, 3)`` view stacks on one device
     :param tile: interior tile size (output pixels per tile per axis)
     :param halo: overlap on each side; at least the receptive radius
+    :param probe: find the spatial outputs with a second probe
+        (``probe_spatial``), for nets with constant-size outputs
     :returns: output dict at full scene size, on the stacks' device
     """
     h, w = stacks[0].shape[2:4]
     win_sz = tile + 2 * halo
     outputs = sdim = None
     for y0, x0, wy0, wx0, iy, ix in tile_positions(h, w, tile, halo).tolist():
-        out = apply_fn(*[s[:, :, wy0:wy0 + win_sz, wx0:wx0 + win_sz]
-                         for s in stacks])
+        window = [s[:, :, wy0:wy0 + win_sz, wx0:wx0 + win_sz]
+                  for s in stacks]
+        out = apply_fn(*window)
         if outputs is None:
-            sdim = {k: None if v is None else spatial_dims(v.shape, win_sz)
-                    for k, v in out.items()}
+            sdim = probe_spatial(apply_fn, window, out, probe)
             outputs = {k: None if d is None else out[k].new_empty(
                 out[k].shape[:d] + (h, w) + out[k].shape[d + 2:])
                 for k, d in sdim.items()}

@@ -860,3 +860,69 @@ def test_data_parallel_on_card_matches_one_rank(cuda, tmp_path):
         torch.testing.assert_close(stats[2][k], want, rtol=1e-4,
                                    atol=1e-4 * float(want.abs().max()),
                                    msg=k)
+
+
+@pytest.mark.parametrize('train', [False, True], ids=['eval', 'train'])
+def test_inn_forward_on_card_matches_cpu(cuda, train):
+    """The INN (``--model_inn``, 1 + 2 coupling blocks, 9 views) on the
+    card (cuDNN subnet convs and the permutation and distance products,
+    TF32 off) against the CPU from the same seeded weights: zixels, the
+    posterior and the log-det within 1e-4 of their max; the inverse of the
+    card's zixels returns the stacks within 1e-4."""
+    from mmlf_tpu_torch.models.inn import INN, init_inn_
+    cfg = Config(model_views=9, model_in_blocks=1, model_out_blocks=2,
+                 model_inn=True).finalize()
+    model = init_inn_(INN.from_config(cfg), seed=3).train(train)
+    rng = np.random.default_rng(4)
+    stacks = [torch.from_numpy(rng.random((2, 9, 40, 44, 3),
+                                          dtype=np.float32))
+              for _ in range(4)]
+    with torch.no_grad():
+        want = model(*stacks)
+        got = model.to(cuda)(*[s.to(cuda) for s in stacks])
+    for key in ('zixels', 'posterior', 'jac'):
+        scale = float(want[key].abs().max())
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
+                                   atol=1e-4 * scale, msg=key)
+    if not train:
+        with torch.no_grad():
+            back = model.inverse(got['zixels'])
+        for b, s in zip(back, stacks):
+            torch.testing.assert_close(b.cpu(), s, rtol=0, atol=1e-4)
+
+
+def test_sharded_validation_on_card_matches_whole(cuda, tmp_path):
+    """``run_validation_ranks`` with two gloo ranks sharing the card:
+    ``--val_ensamble --mesh_ensemble 2`` and ``--mesh_space 2`` each launch
+    K2 once a rank, and their member stacks and posterior equal the
+    whole-scene run's within 1e-4."""
+    from mmlf_tpu_torch.data.synth import generate_dataset
+    from mmlf_tpu_torch.utils.convert import save_checkpoint_pt
+    from mmlf_tpu_torch.validate.cli import (run_validation,
+                                             run_validation_ranks)
+    data = str(tmp_path / 'data')
+    generate_dataset(data, scenes=1, size=64, seed=5)
+    cfg = Config(model_chs=8, model_in_blocks=1, model_out_blocks=2,
+                 model_uncert=True).finalize()
+    model = init_live_(FeedForward.from_config(cfg), seed=2)
+    out = {}
+    for name, kw in (('whole', {}), ('ens', {'mesh_ensemble': 2}),
+                     ('space', {'mesh_space': 2})):
+        d = str(tmp_path / name)
+        os.makedirs(d)
+        save_checkpoint_pt(os.path.join(d, 'checkpoint.pt'),
+                           model.state_dict(), cfg)
+        if kw:
+            res = run_validation_ranks(d, data, 2, device='cuda',
+                                       backend='gloo', timeout=300,
+                                       val_ensamble=True, **kw)
+            for r in res['ranks']:
+                assert r['launches']['laplace_mixture_posterior'] == 1
+        else:
+            run_validation(d, data, val_ensamble=True, device='cuda')
+        scene = os.path.join(d, 'scenes', 'scene_00')
+        out[name] = [np.load(os.path.join(scene, f))
+                     for f in ('gmm.npy', 'posterior.npy')]
+    for name in ('ens', 'space'):
+        for got, want in zip(out[name], out['whole']):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

@@ -289,18 +289,43 @@ def test_export_guards(ckpt, tmp_path):
         fn_u8(*_stacks(32), 0.0)
 
 
-# the U-Net exports (tests/test_torch_unet.py); its case is now the
-# invertible net, which still raises
+# The U-Net exports (tests/test_torch_unet.py) and so does the INN: its case
+# now exports a JAX-initialised INN run with both packages and holds the
+# port's artifact to mmlf_tpu.export's; the invertible net still raises.
 @pytest.mark.parametrize('flag,item', [('model_inn', 'the INN'),
                                        ('model_invertible', 'the INN')])
 def test_unported_checkpoints_raise(tmp_path, flag, item):
-    path = write_checkpoint(str(tmp_path))
-    state = torch.load(os.path.join(path, 'checkpoint.pt'),
-                       weights_only=False)
-    state['hyper_parameters'][flag] = True
-    torch.save(state, os.path.join(path, 'checkpoint.pt'))
-    with pytest.raises(NotImplementedError, match=item):
-        export_inference(path, 32, 32)
+    if flag == 'model_invertible':
+        path = write_checkpoint(str(tmp_path))
+        state = torch.load(os.path.join(path, 'checkpoint.pt'),
+                           weights_only=False)
+        state['hyper_parameters'][flag] = True
+        torch.save(state, os.path.join(path, 'checkpoint.pt'))
+        with pytest.raises(NotImplementedError,
+                           match='INNs are not supported anymore'):
+            export_inference(path, 32, 32)
+        return
+    import jax.numpy as jnp
+    from mmlf_tpu.models.inn import INN as JINN
+    from mmlf_tpu.train import checkpoint as jckpt
+    jcfg = JConfig(model_views=9, model_in_blocks=1, model_out_blocks=1,
+                   model_inn=True).finalize()
+    stacks = _stacks(32, seed=3)
+    variables = jax.jit(JINN.from_config(jcfg).init)(
+        jax.random.PRNGKey(5), *map(jnp.asarray, stacks))
+    path = str(tmp_path / 'inn')
+    os.makedirs(path)
+    jckpt.save_checkpoint(path, jax.device_get(dict(variables)),
+                          jcfg.to_dict(), 0, 0, 0.0)
+    fn, meta = load_exported(export_inference(path, 32, 32), device='cpu')
+    assert meta['config']['model_inn'] and meta['dtype'] == 'float32'
+    j_fn, _ = j_load_exported(j_export_inference(path, 32, 32,
+                                                 platforms=('cpu',)))
+    got = fn(*map(torch.from_numpy, stacks))
+    want = j_fn(*stacks)
+    for k in ('mean', 'logvar', 'posterior', 'zixels', 'jac'):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 def test_export_cli(ckpt, tmp_path):

@@ -23,7 +23,9 @@ assert {'mmlf_tpu_torch.validate.tiling', 'mmlf_tpu_torch.export',
         'mmlf_tpu_torch.native', 'mmlf_tpu_torch.models.unet',
         'mmlf_tpu_torch.data.transforms', 'mmlf_tpu_torch.parallel.mesh',
         'mmlf_tpu_torch.probes.block_probe',
-        'mmlf_tpu_torch.probes.gather_probe'} <= set(names)
+        'mmlf_tpu_torch.probes.gather_probe', 'mmlf_tpu_torch.models.inn',
+        'mmlf_tpu_torch.models.invertible',
+        'mmlf_tpu_torch.validate.spatial'} <= set(names)
 for name in names:
     importlib.import_module(name)
 from mmlf_tpu_torch.ops.kernels import build
@@ -93,6 +95,10 @@ def test_entry_points_raise_without_cuda(tmp_path):
     res = CliRunner().invoke(main, [str(tmp_path), str(tmp_path),
                                     '--val_ensamble'])
     assert isinstance(res.exception, RuntimeError), res.output
+    for kw in ({'mesh_ensemble': 2}, {'mesh_space': 2}):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            run_validation(str(tmp_path), str(tmp_path), val_ensamble=True,
+                           device='cuda', **kw)
 
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         train(Config().finalize(), str(tmp_path))

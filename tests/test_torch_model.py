@@ -129,13 +129,40 @@ def test_reference_checkpoint_roundtrip(tmp_path):
     model.load_state_dict(sd, strict=True)
 
 
-# the U-Net is ported (tests/test_torch_unet.py); its case now pairs it with
-# the INN, which still raises
+# The U-Net is ported (tests/test_torch_unet.py) and so is the INN
+# (tests/test_torch_inn.py): an INN config builds the INN, with --model_unet
+# ignored as in the JAX package, and its weights and forward are the JAX
+# INN's; --model_invertible still raises.
 @pytest.mark.parametrize('flags', [('model_unet', 'model_inn'),
                                    ('model_inn',), ('model_invertible',)],
                          ids=['model_unet_with_inn', 'model_inn',
                               'model_invertible'])
 def test_unported_models_raise(flags):
+    from mmlf_tpu_torch.models import build_model
     cfg = Config(**SMALL, **dict.fromkeys(flags, True)).finalize()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        FeedForward.from_config(cfg)
+    if 'model_inn' not in flags:
+        with pytest.raises(NotImplementedError,
+                           match='INNs are not supported anymore'):
+            build_model(cfg)
+        with pytest.raises(NotImplementedError,
+                           match='INNs are not supported anymore'):
+            FeedForward.from_config(cfg)
+        return
+    import jax
+    from mmlf_tpu.models.inn import INN as JINN
+    stacks = [np.random.default_rng(j).random((1, 3, 8, 8, 3), np.float32)
+              for j in range(4)]
+    jm = JINN.from_config(JConfig(**SMALL, **dict.fromkeys(flags, True))
+                          .finalize())
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                 *map(jnp.asarray, stacks))
+    model = build_model(cfg)
+    assert type(model).__name__ == 'INN'
+    model.load_state_dict(state_dict_from_jax(jax.device_get(dict(
+        variables)), cfg), strict=True)
+    want = jm.apply(variables, *map(jnp.asarray, stacks))
+    with torch.no_grad():
+        got = model.eval()(*map(torch.from_numpy, stacks))
+    for k in ('zixels', 'jac', 'posterior'):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)

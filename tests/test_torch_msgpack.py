@@ -206,8 +206,10 @@ def test_bf16_run_dir_raises_with_its_item(jax_run, tmp_path):
     in its stored config): both validate CLIs evaluate it with the bf16
     trunk and agree, the port's tiled ESE and its export run it in bf16,
     and both servers answer for it.  bf16 rounds, so the metrics within
-    1e-2 relative (tests/test_torch_bf16.py); one that also asks for an
-    unported model raises, naming its item."""
+    1e-2 relative (tests/test_torch_bf16.py).  A bf16 INN run (once
+    unported, raising with its item; now a JAX-initialised ``--model_inn
+    --bf16`` run directory) goes through both validate CLIs, within the
+    same 1e-2."""
     data, run = jax_run
     dirs = []
     for name in ('jax', 'torch'):
@@ -236,10 +238,19 @@ def test_bf16_run_dir_raises_with_its_item(jax_run, tmp_path):
     for k in ('mse', 'badpix_007'):
         assert served[k] == pytest.approx(want[k], rel=1e-2, abs=1e-6), k
 
-    path = os.path.join(dirs[1], 'hyper_parameters.json')
-    with open(path) as f:
-        hyper = json.load(f)
-    with open(path, 'w') as f:
-        json.dump(dict(hyper, model_inn=True), f)
-    with pytest.raises(NotImplementedError, match='the INN'):
-        run_validation(dirs[1], data, device='cpu')
+    import jax
+    from mmlf_tpu.models.inn import INN as JINN
+    from mmlf_tpu.train import checkpoint as jckpt
+    jcfg = JConfig(model_views=9, model_in_blocks=1, model_out_blocks=1,
+                   model_inn=True, bf16=True).finalize()
+    variables = jax.device_get(dict(jax.jit(JINN.from_config(jcfg).init)(
+        jax.random.PRNGKey(0), *[jnp.zeros((1, 9, 16, 16, 3))] * 4)))
+    inn = [str(tmp_path / f'inn_{name}') for name in ('jax', 'torch')]
+    for d in inn:
+        os.makedirs(d)
+        jckpt.save_checkpoint(d, variables, jcfg.to_dict(), 0, 0, 0.0)
+    want = j_run_validation(inn[0], data, val_loss_margin=15)
+    got = run_validation(inn[1], data, device='cpu', val_loss_margin=15)
+    for k in METRICS:
+        assert np.isfinite(got[k]), k
+        assert got[k] == pytest.approx(want[k], rel=1e-2, abs=1e-6), k

@@ -371,11 +371,77 @@ def test_accum_exact_guards():
     loop.check_accum(Config(**base).finalize())
 
 
-# the pallas_trunk, bf16, cache_bf16, remat, host_pipeline, model_unet and
-# mesh_data cases pair each (ported) flag with one that still raises: the
-# run stops at the unported one, before any rank starts (the host pipeline,
-# the U-Net and data parallel run in tests/test_torch_host_pipeline.py,
-# tests/test_torch_unet.py and tests/test_torch_parallel.py)
+# Each case once paired a ported flag with --model_inn, which raised.  The
+# INN is ported: an INN case now trains one step from the JAX package's
+# initial variables, and its log row (train loss, val IB loss, mse, badpix
+# at step 0) is held against JAX's train() with the flags the JAX package
+# acts on for an INN (INN_JAX_RUN: it ignores --pallas_trunk, --model_unet
+# and --remat, and its --mesh_data step is its single-device step, tests/
+# test_parallel.py).  --model_invertible still raises.
+INN_JAX_RUNS = {'plain': {}, 'host': {'host_pipeline': True},
+                'host_bf16': {'host_pipeline': True, 'bf16': True}}
+
+
+def INN_JAX_RUN(kw):
+    if kw.get('bf16'):
+        return 'host_bf16'
+    return 'host' if kw.get('host_pipeline') else 'plain'
+
+
+@pytest.fixture(scope='module')
+def inn_jax_rows(data_dirs, tmp_path_factory):
+    """JAX's step-0 row and initial variables for each of INN_JAX_RUNS."""
+    from mmlf_tpu.models.inn import INN as JINN
+    out = {}
+    for name, extra in INN_JAX_RUNS.items():
+        kw = _kw(data_dirs, model_inn=True, model_out_blocks=1,
+                 train_steps=1, **extra)
+        jcfg = JConfig(**kw).finalize()
+        jout = str(tmp_path_factory.mktemp(f'inn_{name}'))
+        jloop.train(jcfg, jout, progress=False)
+        init = jax.jit(JINN.from_config(jcfg).init)(
+            jax.random.PRNGKey(jcfg.train_seed),
+            *[jnp.zeros((1, 9, 32, 32, 3))] * 4)
+        out[name] = (_rows(jout)[0], jax.device_get(dict(init)))
+    return out
+
+
+# the --mesh_data cases but one train in one run of two gloo ranks
+# (``inn_mesh_rows``); ``{'mesh_data': 2, 'model_inn': True}`` starts its
+# ranks through ``train()`` itself
+INN_MESH_SHARED = ({'remat': True, 'mesh_data': 2, 'model_inn': True},
+                   {'host_pipeline': True, 'mesh_data': 2, 'model_inn': True},
+                   {'model_unet': True, 'mesh_data': 2, 'model_inn': True})
+
+
+@pytest.fixture(scope='module')
+def inn_mesh_rows(data_dirs, inn_jax_rows, tmp_path_factory):
+    """The step-0 row of each INN_MESH_SHARED case, trained by two gloo
+    ranks (``tests/torch_parallel_ranks.train_cases``) from the JAX
+    package's initial variables."""
+    import json
+    import torch_parallel_ranks
+    from mmlf_tpu_torch.parallel import mesh
+    case_dir = str(tmp_path_factory.mktemp('inn_mesh'))
+    cases = {}
+    for j, kw in enumerate(INN_MESH_SHARED):
+        full = _kw(data_dirs, model_out_blocks=1, train_steps=1, **kw)
+        cfg = Config(**full).finalize()
+        init = inn_jax_rows[INN_JAX_RUN(kw)][1]
+        np.savez(os.path.join(case_dir, f'case{j}.npz'),
+                 **{k: v.numpy() for k, v in
+                    state_dict_from_jax(init, cfg).items()})
+        out = os.path.join(case_dir, f'out{j}')
+        os.makedirs(out)
+        cases[f'case{j}'] = {'kw': full, 'out': out}
+    with open(os.path.join(case_dir, 'train_cases.json'), 'w') as fh:
+        json.dump(cases, fh)
+    reports = mesh.launch(torch_parallel_ranks.train_cases, 2, (case_dir,),
+                          device_type='cpu', timeout=240, store=case_dir)
+    assert reports == [len(cases)] * 2
+    return [_rows(c['out'])[0] for c in cases.values()]
+
+
 @pytest.mark.parametrize('kw,match', [
     ({'pallas_trunk': True, 'model_unet': True, 'model_inn': True},
      'item 7'),
@@ -388,9 +454,31 @@ def test_accum_exact_guards():
     ({'model_unet': True, 'mesh_data': 2, 'model_inn': True}, 'ROADMAP'),
     ({'model_inn': True}, 'ROADMAP'),
     ({'model_invertible': True}, 'INNs are not supported')])
-def test_unported_flags_raise(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        loop.train(Config(**kw).finalize(), str(tmp_path), device='cpu')
+def test_unported_flags_raise(tmp_path, kw, match, request):
+    """--model_invertible raises; every --model_inn case trains (two gloo
+    ranks under --mesh_data 2) and its step-0 row agrees with JAX's within
+    rel 1e-3 (bf16: 2e-2)."""
+    if not kw.get('model_inn'):
+        with pytest.raises(NotImplementedError, match=match):
+            loop.train(Config(**kw).finalize(), str(tmp_path), device='cpu')
+        return
+    data_dirs = request.getfixturevalue('data_dirs')
+    want, init = request.getfixturevalue('inn_jax_rows')[INN_JAX_RUN(kw)]
+    if kw in INN_MESH_SHARED:
+        got = request.getfixturevalue('inn_mesh_rows')[
+            INN_MESH_SHARED.index(kw)]
+    else:
+        cfg = Config(**_kw(data_dirs, model_out_blocks=1, train_steps=1,
+                           **kw)).finalize()
+        state = loop.train(cfg, str(tmp_path), progress=False, device='cpu',
+                           initial_state=state_dict_from_jax(init, cfg))
+        assert state.step == 1
+        assert type(state.model).__name__ == 'INN'
+        assert (state.ranks is not None) == (kw.get('mesh_data') == 2)
+        got = _rows(str(tmp_path))[0]
+    assert got[0] == want[0] == 0
+    np.testing.assert_allclose(got[1:5], want[1:5],
+                               rtol=2e-2 if kw.get('bf16') else 1e-3)
 
 
 # ------------------------------------------------------- the slice as a whole

@@ -83,7 +83,49 @@ def test_validate_matches_jax(case, dataset, tmp_path):
 
 @pytest.mark.parametrize('kw', [{'mesh_space': 2}, {'mesh_ensemble': 2}])
 def test_unported_options_raise(kw, dataset, tmp_path):
-    _checkpoint(str(tmp_path), True)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        run_validation(str(tmp_path), dataset, val_ensamble=True,
-                       device='cpu', **kw)
+    """--mesh_space and --mesh_ensemble, once unported, now run: the
+    library entry starts two gloo ranks itself and its ESE metrics and
+    artifacts agree with the JAX package's with the same option (rel 1e-3,
+    5e-4; tests/test_torch_mesh_val.py runs the other cases); its report
+    lists each rank's launch counts."""
+    jdir, tdir = str(tmp_path / 'jax'), str(tmp_path / 'torch')
+    for d in (jdir, tdir):
+        _checkpoint(d, True)
+    kw = dict(kw, val_ensamble=True, val_disp_step=0.5)    # 14 members
+    want = j_run_validation(jdir, dataset, **kw)
+    got = run_validation(tdir, dataset, device='cpu', **kw)
+    assert [r['rank'] for r in got['ranks']] == [0, 1]
+    for k in METRICS:
+        assert got[k] == pytest.approx(want[k], rel=1e-3, abs=1e-6), k
+    for name in ('gmm.npy', 'posterior.npy'):
+        np.testing.assert_allclose(
+            *(np.load(os.path.join(d, 'scenes', 'scene_00', name))
+              for d in (tdir, jdir)), atol=5e-4, err_msg=name)
+
+
+def test_model_invertible_is_ignored_like_jax(dataset, tmp_path):
+    """Both validate CLIs accept --model_invertible and ignore it: on one
+    checkpoint each gives with the flag what it gives without (result.pfm
+    and posterior.npy bit for bit), and the two agree (5e-4)."""
+    from click.testing import CliRunner
+    from mmlf_tpu.validate.cli import main as j_main
+    from mmlf_tpu_torch.validate.cli import main
+    out = {}
+    for pkg, cli, extra in (('jax', j_main, []),
+                            ('torch', main, ['--device', 'cpu'])):
+        for flag in ([], ['--model_invertible']):
+            d = str(tmp_path / f'{pkg}{len(flag)}')
+            _checkpoint(d, False)
+            res = CliRunner().invoke(cli, [d, dataset, '--val_loss_margin',
+                                           '15'] + flag + extra)
+            assert res.exit_code == 0, res.output
+            out[pkg, len(flag)] = [
+                np.asarray(pfm.load(os.path.join(d, 'scenes', 'scene_00',
+                                                 'result.pfm'))),
+                np.load(os.path.join(d, 'scenes', 'scene_00',
+                                     'posterior.npy'))]
+    for pkg in ('jax', 'torch'):
+        for a, b in zip(out[pkg, 0], out[pkg, 1]):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(out['torch', 1], out['jax', 1]):
+        np.testing.assert_allclose(a, b, atol=5e-4)

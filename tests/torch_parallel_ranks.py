@@ -44,3 +44,17 @@ def step_cases(case_dir: str) -> int:
             np.savez(os.path.join(case_dir, f'{name}.out.npz'),
                      loss=np.float32(loss), **out)
     return len(cases)
+
+
+def train_cases(case_dir: str) -> int:
+    """For every case of ``case_dir/train_cases.json`` (config keywords
+    and an output directory): ``train()`` in this rank's group from the
+    state of ``<name>.npz``.  Returns the number of cases."""
+    with open(os.path.join(case_dir, 'train_cases.json')) as fh:
+        cases = json.load(fh)
+    for name, case in cases.items():
+        with np.load(os.path.join(case_dir, f'{name}.npz')) as z:
+            state = {k: torch.from_numpy(z[k]) for k in z}
+        loop.train(Config(**case['kw']).finalize(), case['out'],
+                   progress=False, device='cpu', initial_state=state)
+    return len(cases)
