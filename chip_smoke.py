@@ -24,6 +24,9 @@
                                    # full-width checkpoint, main and
                                    # mesh_val
     python3 chip_smoke.py inn      # card, build, data and inn
+    python3 chip_smoke.py analysis # card, build, the val scene, a seeded
+                                   # full-width checkpoint, main and
+                                   # analysis
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -45,9 +48,12 @@ Phases, in order; any failure exits non-zero and prints no result:
              (chs 70, 3+8 blocks, 9 views): bs 512 as 8 microbatches of
              64, ps 96, train_shift 2.5, warm-start LR 1e-3, TRAIN_STEPS
              steps, validation at step 0; checks the log rows, the
-             checkpoint and that kernel K1 launched steps × accum times,
-             then holds K1 against its plain version on the run's own last
-             batch; prints s/step, patches/s, conv TFLOP/s, peak memory;
+             checkpoint (its iteration the last save's) and that kernel K1
+             launched steps × accum times, then holds K1 against its plain
+             version on the run's own last batch; prints s/step,
+             patches/s, conv TFLOP/s, peak memory and the time each
+             rolling-checkpoint save blocked the step loop (the snapshot;
+             the write runs on the saver's thread);
 5. K1      — the window gather against its plain version at the recipe
              shape (64 windows of 128², all four levels, with and without
              the MPI field), its time, the plain version's, one
@@ -127,6 +133,18 @@ Phases, in order; any failure exits non-zero and prints no result:
              validate CLI on the val scene, 70 members; checks the
              metrics, the artifacts and that K2 launched once; then holds
              K2 against its plain version on the run's own members;
+8b. analysis — the analysis CLIs through their ``main`` on phase main's
+             output (70 members, 70 bins): sparsify, cluster, modecnt,
+             multimodal --uni / --multi / --lb, mm_prediction, gmm_cnt on
+             the card at its default grid (1400 points x 70 members x
+             512² pixels), gmm2csv and post2csv at one pixel, uncert2csv,
+             edges on the val dataset; checks their files, prints each
+             CLI's wall time and gmm_cnt's device time (CUDA events), then
+             holds ``count_modes`` on the card against its CPU path on one
+             chunk of 8192 pixels: the density within ANALYSIS_RTOL, the
+             maps equal but at pixels with a near tie (two neighbouring
+             grid values within ANALYSIS_TIE_REL in float64), whose share
+             it prints; no plot (the card's machine has no matplotlib);
 9. main_tiled — the same validation with ``--val_tile 256`` (4 windows of
              310², halo 27); checks that K2 launched once per tile and
              holds the member means and logvars and the selected member
@@ -169,8 +187,8 @@ numbers printed mean nothing; the run shows that the port builds, agrees
 with its plain versions and runs the main path's train step (plain and
 ``--pallas_trunk``, each in float32 and in bfloat16), its validation and
 its serving on the card, data parallel over two ranks, sharded
-validation over two ranks, the INN end to end, and the probe scripts'
-kernels.
+validation over two ranks, the INN end to end, the probe scripts'
+kernels, and the analysis CLIs on the validation's output.
 Imports nothing of JAX or of mmlf_tpu.
 """
 
@@ -294,6 +312,15 @@ MESH_REL = 1e-4
 INN_STEPS = 3
 INN_TILE = 64
 INN_TILE_TOL = 1e-4
+# phase analysis: gmm_cnt's card path against its CPU path on one chunk of
+# pixels (the middle rows of the scene); the densities within rtol (atol:
+# the largest term whose exponential is denormal, where the two exps may
+# part), the maps equal but at pixels with a near tie, two neighbouring
+# grid values within ANALYSIS_TIE_REL of each other in float64
+ANALYSIS_CHUNK = 8192
+ANALYSIS_RTOL = 1e-5
+ANALYSIS_TIE_REL = 1e-5
+ANALYSIS_PIXEL = ('256', '256')
 
 
 def log(*args):
@@ -597,8 +624,23 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
         seen['copy_s'].append(time.perf_counter() - t0)
         return out
 
+    # the rolling checkpoint: the time each save blocks the step loop (the
+    # snapshot; the write runs on the saver's thread) and its iteration
+    saver_base = loop.ModelSaver
+
+    class TimedSaver(saver_base):
+        def __call__(self, out_dir, model, optimizer, cfg, epoch, iteration,
+                     loss):
+            t0 = time.perf_counter()
+            saved = super().__call__(out_dir, model, optimizer, cfg, epoch,
+                                     iteration, loss)
+            seen.setdefault('save_s', []).append(time.perf_counter() - t0)
+            seen['saved_iteration'] = iteration
+            return saved
+
     setattr(loop, base.__name__, Recording)
     loop.batch_to_device = timed_to_device
+    loop.ModelSaver = TimedSaver
     os.makedirs(run)
     recipe = ([a for a in RECIPE if a != '--model_uncert'] + ['--model_inn']
               if inn else RECIPE)
@@ -622,6 +664,7 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
     finally:
         setattr(loop, base.__name__, base)
         loop.batch_to_device = to_device
+        loop.ModelSaver = saver_base
     wall = time.time() - t
     launches = read_launches(M)
     peak = torch.cuda.max_memory_allocated()
@@ -654,6 +697,10 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
             hyper['host_pipeline'] != host or hyper['model_unet'] != unet \
             or hyper['model_inn'] != inn:
         raise AssertionError('checkpoint.pt does not hold the final step')
+    if ckpt['iteration'] != seen['saved_iteration']:
+        raise AssertionError(f'checkpoint.pt holds iteration '
+                             f'{ckpt["iteration"]}, the last save was '
+                             f'{seen["saved_iteration"]}')
     del state
 
     pipe, batch = seen['pipeline'], seen['batch']
@@ -689,7 +736,10 @@ def phase_train(M, train: str, val: str, run: str, steps: int,
         f'in {wall:.1f} s CLI wall; steady steps {steady} s, '
         f'{s_step:.3f} s/step, {bs / s_step:.1f} patches/s, {flops}'
         f'{host_ms}peak device memory {peak / 2**30:.2f} GiB, launches '
-        f'{launches}, losses {[r[1] for r in rows]}')
+        f'{launches}, losses {[r[1] for r in rows]}; the rolling '
+        f'checkpoint\'s snapshots blocked the step loop '
+        f'{[round(x * 1e3, 1) for x in seen["save_s"]]} ms (written on the '
+        f'saver\'s thread, iteration {seen["saved_iteration"]})')
     return {'launches': launches, 'pipeline': pipe, 's_step': s_step,
             'size': size, 'peak': peak, 'first': seen.get('first'),
             'sample_s': seen['sample_s'], 'copy_s': seen['copy_s'],
@@ -1293,6 +1343,207 @@ def phase_main_tiled(M, run: str, val: str, gmm_whole,
         + json.dumps({k: result[k] - metrics_whole[k] for k in METRICS}))
     return {'launches': counts['laplace_mixture_posterior'],
             's_per_scene': result['runtime'], 'peak_bytes': peak}
+
+
+def decision_ties(gmm_cnt, means, variances, grid, rel: float):
+    """(G, P): the local-maximum decisions (d[g] against d[g-1] and
+    d[g+1]) of a (K, P) mixture on ``grid`` whose float64 values lie
+    within ``rel`` of each other: there the float32 test may go either
+    way."""
+    import torch
+    d = gmm_cnt.mixture_on_grid(means.double(), variances.double(),
+                                grid.double())
+    close = (d[1:] - d[:-1]).abs() <= rel * torch.maximum(d[1:], d[:-1])
+    ties = torch.zeros_like(d, dtype=torch.bool)
+    ties[1:-1] = close[:-1] | close[1:]
+    return ties
+
+
+def phase_analysis(run: str, val: str, card: str) -> None:
+    """The analysis CLIs, each through its ``main``, on phase main's output
+    (the ESE validation of one 512² scene: gmm.npy of 70 members, the
+    posterior of 70 bins): sparsify, cluster, modecnt, multimodal (--uni,
+    --multi, --lb), mm_prediction, gmm_cnt on the card at its default grid
+    (1400 points), gmm2csv and post2csv at one pixel, uncert2csv, and
+    edges on the val dataset; each CLI's wall time and gmm_cnt's device
+    time (CUDA events around its ``count_modes``).  Then ``count_modes``
+    on the card against its CPU path on one chunk of pixels."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from mmlf_tpu_torch.utils import (gmm2csv, gmm_cnt, modecnt, pfm,
+                                      post2csv, uncert2csv)
+    from mmlf_tpu_torch.validate import (cluster, edges, mm_prediction,
+                                         multimodal, sparsify)
+
+    scene = os.path.join(run, 'scenes', 'scene_00')
+    out = os.path.join(run, 'analysis')
+    os.makedirs(out)
+    x, y = ANALYSIS_PIXEL
+    walls, last = {}, {}
+    maps = []
+    device_ms = []
+    count_modes = gmm_cnt.count_modes
+
+    def timed_count_modes(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        result = count_modes(*a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        maps.append(result)
+        return result
+
+    steps = [
+        ('sparsify', sparsify.main, [run]),
+        ('cluster', cluster.main, [run]),
+        ('modecnt', modecnt.main, [run]),
+        ('multimodal --uni', multimodal.main, [run, '--uni']),
+        ('multimodal --multi', multimodal.main, [run, '--multi']),
+        ('multimodal --lb', multimodal.main, [run, '--lb']),
+        ('mm_prediction', mm_prediction.main, [run]),
+        ('gmm_cnt', gmm_cnt.main, [scene, scene]),
+        ('gmm2csv', gmm2csv.main, [os.path.join(scene, 'gmm.npy'),
+                                   os.path.join(out, f'gmm_{x}_{y}.csv'),
+                                   x, y, '--sum_only']),
+        ('post2csv', post2csv.main, [scene, x, y]),
+        ('uncert2csv', uncert2csv.main,
+         [os.path.join(scene, 'result.pfm'), os.path.join(scene, 'uncert.pfm'),
+          os.path.join(out, f'uncert_{x}_{y}.csv'), x, y]),
+        ('edges', edges.main, [val]),
+    ]
+    cwd = os.getcwd()
+    gmm_cnt.count_modes = timed_count_modes
+    # multimodal writes its per-scene PNGs into the working directory
+    os.chdir(out)
+    try:
+        for name, main, args in steps:
+            text = io.StringIO()
+            t = time.time()
+            with contextlib.redirect_stdout(text):
+                main(args, standalone_mode=False)
+            walls[name] = time.time() - t
+            with open(os.path.join(out, name.replace(' ', '') + '.txt'),
+                      'w') as fh:
+                fh.write(text.getvalue())
+            lines = text.getvalue().strip().splitlines()
+            last[name] = lines[-1] if lines else ''
+    finally:
+        os.chdir(cwd)
+        gmm_cnt.count_modes = count_modes
+
+    for f in ('sparsify.csv', 'mm_pred.csv', 'scenes/scene_00/gt_modes.npy',
+              'scenes/scene_00/mode_prop.pfm', 'scenes/scene_00/cnts.png',
+              'scenes/scene_00/result_best.png',
+              'scenes/scene_00/second_chance.txt',
+              f'scenes/scene_00/posterior_{x}_{y}.csv',
+              f'scenes/scene_00/center_{x}_{y}.png',
+              f'analysis/gmm_{x}_{y}.csv', f'analysis/uncert_{x}_{y}.csv',
+              'analysis/mse_0.png'):
+        if not os.path.exists(os.path.join(run, f)):
+            raise AssertionError(f'analysis: {f} missing')
+    if not os.path.exists(os.path.join(val, 'scene_00', 'edges.png')):
+        raise AssertionError('analysis: edges.png of the val scene missing')
+    for csv in ('sparsify.csv', 'mm_pred.csv'):
+        table = np.genfromtxt(os.path.join(run, csv), delimiter=',',
+                              skip_header=1)
+        if table.shape != (100, 4) or not np.isfinite(table).all():
+            raise AssertionError(f'analysis: {csv} rows {table.shape}')
+    modes = np.load(os.path.join(scene, 'gt_modes.npy'))
+    prop = pfm.load(os.path.join(scene, 'mode_prop.pfm'))
+    if modes.shape != (SIZE, SIZE, 2) or prop.shape != (SIZE, SIZE) or \
+            not np.isfinite(prop).all():
+        raise AssertionError(f'analysis: gt_modes {modes.shape}, mode_prop '
+                             f'{prop.shape}')
+    (cnts, mode_min, mode_max), = maps
+    has = cnts > 0
+    if cnts.shape != (SIZE, SIZE) or cnts.min() < 0 or \
+            not np.isfinite(mode_min).all() or \
+            not (mode_min[has] <= mode_max[has]).all():
+        raise AssertionError('analysis: gmm_cnt maps')
+    for name in ('multimodal --uni', 'multimodal --multi', 'multimodal --lb',
+                 'gmm_cnt'):
+        values = [float(w) for w in last[name].split()
+                  if not w.endswith(':')]
+        if not values or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f'analysis: {name} printed {last[name]!r}')
+
+    # the card's count_modes against the CPU path on one chunk of pixels
+    gmm = np.load(os.path.join(scene, 'gmm.npy'))
+    k = gmm.shape[1]
+    rows = ANALYSIS_CHUNK // SIZE
+    r0 = (SIZE - rows) // 2
+    sub = np.ascontiguousarray(gmm[:, :, r0:r0 + rows])
+    means = torch.from_numpy(sub[0].reshape(k, -1))
+    variances = torch.from_numpy(sub[1].reshape(k, -1))
+    grid = torch.from_numpy(np.arange(-3.5, 3.5, 0.005, dtype=np.float32))
+    dev = torch.device('cuda')
+    t = time.time()
+    dens = gmm_cnt.mixture_on_grid(means.to(dev), variances.to(dev),
+                                   grid.to(dev))
+    dens_cpu = gmm_cnt.mixture_on_grid(means, variances, grid)
+    vmin = float(variances.min())
+    atol = float(np.finfo(np.float32).tiny) / (
+        math.sqrt(2.0 * math.pi * vmin) * vmin)
+    diff = (dens.cpu() - dens_cpu).abs()
+    excess = (diff - ANALYSIS_RTOL * dens_cpu.abs() - atol).max().item()
+    rel = (diff / dens_cpu.abs().clamp_min(
+        float(np.finfo(np.float32).tiny))).max().item()
+    if excess > 0:
+        raise AssertionError(f'analysis: card density vs CPU, max rel '
+                             f'{rel:.3e} (rtol {ANALYSIS_RTOL}, atol '
+                             f'{atol:.3e})')
+    # every local-maximum decision that the two densities take apart is a
+    # near tie in float64
+    is_max = gmm_cnt.local_maxima(dens)
+    flips = (is_max.cpu() != gmm_cnt.local_maxima(dens_cpu)).to(dev)
+    ties = decision_ties(gmm_cnt, means.to(dev), variances.to(dev),
+                         grid.to(dev), ANALYSIS_TIE_REL)
+    if (flips & ~ties).any():
+        raise AssertionError(f'analysis: {int((flips & ~ties).sum())} '
+                             f'local-maximum decisions differ between the '
+                             f'card and the CPU without a near tie')
+    # the card's count_modes gives the maps of the density checked here;
+    # the CPU path's maps part from them only at pixels with a near tie
+    got = gmm_cnt.count_modes(sub, -3.5, 3.5, 0.005, device='cuda')
+    want = gmm_cnt.count_modes(sub, -3.5, 3.5, 0.005, device='cpu')
+    for g, m in zip(got, gmm_cnt.mode_maps(is_max, -3.5, 0.005)):
+        if not np.array_equal(g.reshape(-1), m.cpu().numpy()):
+            raise AssertionError('analysis: count_modes on the card is not '
+                                 'the maps of its own density')
+    tied = ties.any(0).cpu().numpy().reshape(sub.shape[2:])
+    differ = np.zeros(sub.shape[2:], bool)
+    for g, w in zip(got, want):
+        differ |= g != w
+    if (differ & ~tied).any():
+        raise AssertionError(f'analysis: card maps differ from the CPU path '
+                             f'at {int((differ & ~tied).sum())} pixels '
+                             f'without a near tie')
+    n_flips, n_ties = int(flips.sum()), int(ties.sum())
+    del dens, dens_cpu, diff, is_max, flips, ties
+    check_s = time.time() - t
+
+    log('analysis: CLI wall s ' + json.dumps(
+        {n: round(w, 3) for n, w in walls.items()}) + f', total '
+        f'{sum(walls.values()):.1f} s; card {card}')
+    log(f'analysis: gmm_cnt count_modes on the card ({len(grid)} grid '
+        f'points x {k} members x {SIZE * SIZE} pixels, chunks of 8192) '
+        f'{device_ms[0]:.1f} ms by CUDA events (the gmm copy in, the maps '
+        f'out); {last["gmm_cnt"]}; sparsify {last["sparsify"]}; '
+        f'mm_prediction {last["mm_prediction"]}; multimodal --multi '
+        f'{last["multimodal --multi"]}')
+    log(f'analysis: count_modes card vs CPU on {ANALYSIS_CHUNK} pixels '
+        f'(rows {r0}-{r0 + rows - 1}): density max rel {rel:.3e} (rtol '
+        f'{ANALYSIS_RTOL}); {n_flips} of {len(grid) * ANALYSIS_CHUNK} '
+        f'local-maximum decisions differ, all among the {n_ties} near '
+        f'ties (rel {ANALYSIS_TIE_REL} in float64); the maps differ at '
+        f'{int(differ.sum())} pixels ({differ.mean():.2e}), all with a '
+        f'near tie ({tied.mean():.2e} of the pixels have one); '
+        f'{check_s:.1f} s')
 
 
 def _http(port: int, method: str, path: str, payload=None):
@@ -2497,7 +2748,7 @@ def main() -> int:
     mode = sys.argv[1:]
     if mode not in ([], ['k3'], ['k2'], ['serve'], ['bf16'],
                     ['bf16_trunk'], ['host'], ['unet'], ['probes'], ['dp'],
-                    ['k1'], ['dp4'], ['mesh_val'], ['inn']):
+                    ['k1'], ['dp4'], ['mesh_val'], ['inn'], ['analysis']):
         print(f'chip_smoke: unknown arguments {mode}', file=sys.stderr)
         return 2
 
@@ -2536,6 +2787,12 @@ def main() -> int:
         random_checkpoint(run)
         main_run = phase_main(M, run, val)
         phase_serve(M, run, val, main_run, card)
+        return 0
+    if mode == ['analysis']:
+        _, val = phase_data(work, n_train=0)
+        random_checkpoint(run)
+        phase_main(M, run, val)
+        phase_analysis(run, val, card)
         return 0
     if mode == ['mesh_val']:
         _, val = phase_data(work, n_train=0)
@@ -2626,6 +2883,9 @@ def main() -> int:
     probes = phase_probes(M, card)
 
     main_run = phase_main(M, run, val)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_analysis(run, val, card)
     gc.collect()
     torch.cuda.empty_cache()
     tiled_run = phase_main_tiled(M, run, val, main_run['gmm'],

@@ -10,6 +10,7 @@ the disparity range and ``train_shift``.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Optional
 
@@ -107,3 +108,12 @@ class Config:
         """Build a Config from a flat dict, ignoring unknown keys."""
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def save_json(self, path: str) -> None:
+        with open(path, 'w') as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def load_json(cls, path: str) -> 'Config':
+        with open(path) as f:
+            return cls.from_dict(json.load(f))

@@ -30,7 +30,10 @@ The counterpart of ``mmlf_tpu.train.loop`` (which reproduces the reference
     each step: what ``optax.scale_by_adam`` with ``-lr·u`` computes;
   * validation at ``i % val_interval == 0`` on the unshifted val scenes
     (``validate/cli.make_scene_eval``), the artifact dump and the rolling
-    ``checkpoint.pt``;
+    ``checkpoint.pt``, written through an asynchronous ``ModelSaver`` (the
+    loop blocks for the host snapshot; ``close()`` drains the writer in
+    ``finally``, and a write error never replaces an exception already
+    raised);
   * the ``log.csv`` columns of the reference, emitted through a 3-step lag
     ring (0 with ``--train_nan_guard``), the first row's time the absolute
     unix time (reference quirk);
@@ -98,7 +101,7 @@ from ..ops.masks import create_mask_margin
 from ..parallel import mesh
 from ..utils.device import resolve_device
 from ..validate.cli import make_scene_eval, scene_to_device
-from .checkpoint import has_checkpoint, load_checkpoint, save_checkpoint
+from .checkpoint import ModelSaver, has_checkpoint, load_checkpoint
 
 LOG_HEADER = (f'{"iter":>7}, loss_train,   loss_val,        mse, '
               'badpix_007, time_elapsed')
@@ -491,6 +494,7 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
                                  cfg.val_disp_step, cfg.val_loss_margin)
 
     # rank 0 alone writes the log, validates and checkpoints
+    model_saver = ModelSaver() if lead else None
     log = open(os.path.join(output_dir, 'log.csv') if lead else os.devnull,
                'a' if cfg.train_resume else 'w')
     if progress:
@@ -530,8 +534,8 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
         if not lead:
             return
         epoch = i // max(1, len(trainset) // cfg.train_bs)
-        save_checkpoint(output_dir, model, optimizer, cfg, epoch, i,
-                        loss_val_avg)
+        model_saver(output_dir, model, optimizer, cfg, epoch, i,
+                    loss_val_avg)
 
     term_event = None
     prev_term = None
@@ -605,14 +609,27 @@ def train(cfg: Config, output_dir: str, progress: bool = True,
         while pending:
             emit_row(pending.popleft())
     finally:
-        pipeline.close()
-        if profiler is not None:
-            _stop_profiler(profiler, output_dir, dev)
-        if term_event is not None:
-            signal.signal(signal.SIGTERM,
-                          prev_term if prev_term is not None
-                          else signal.SIG_DFL)
-        log.close()
+        # drain the checkpoint writer; an exception on its way up stays
+        # the visible one, and a write error close() raises beside it is
+        # only reported
+        in_flight = sys.exc_info()[0] is not None
+        try:
+            if model_saver is not None:
+                model_saver.close()
+        except RuntimeError as exc:
+            if not in_flight:
+                raise
+            print(f'checkpoint writer failed during shutdown: {exc!r}',
+                  file=sys.stderr)
+        finally:
+            pipeline.close()
+            if profiler is not None:
+                _stop_profiler(profiler, output_dir, dev)
+            if term_event is not None:
+                signal.signal(signal.SIGTERM,
+                              prev_term if prev_term is not None
+                              else signal.SIG_DFL)
+            log.close()
     return TrainState(model=model, optimizer=optimizer, step=i)
 
 

@@ -174,9 +174,12 @@ def state_dict_from_jax(variables: dict, cfg) -> Dict[str, torch.Tensor]:
 
 
 def _to_cpu(obj):
-    """Tensors of a nested dict/list/tuple moved to the CPU."""
+    """Tensors of a nested dict/list/tuple copied to the CPU.  Always a
+    copy, also of a CPU tensor: the result is a snapshot that later
+    in-place updates of the live tensors (the next optimizer step) do not
+    reach."""
     if torch.is_tensor(obj):
-        return obj.detach().cpu()
+        return obj.detach().to('cpu', copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -184,20 +187,35 @@ def _to_cpu(obj):
     return obj
 
 
+def checkpoint_payload(state_dict: dict, cfg, epoch=None, iteration: int = 0,
+                       loss: float = 0.0, optimizer_state_dict=None) -> dict:
+    """The contents of a reference-format ``checkpoint.pt``: model state,
+    optimizer state (torch Adam's ``state_dict()``, or None), the full
+    hyper-parameter dict, epoch, iteration and loss, every tensor copied
+    to the CPU."""
+    cfg_dict = cfg if isinstance(cfg, dict) else cfg.to_dict()
+    return {'model_state_dict': _to_cpu(dict(state_dict)),
+            'optimizer_state_dict': _to_cpu(optimizer_state_dict),
+            'hyper_parameters': cfg_dict, 'epoch': epoch,
+            'iteration': iteration, 'loss': loss}
+
+
+def write_checkpoint_pt(path: str, payload: dict) -> None:
+    """Write ``payload`` to ``path`` atomically (temporary file + rename):
+    a reader never sees half a file."""
+    tmp = f'{path}.tmp'
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
 def save_checkpoint_pt(path: str, state_dict: dict, cfg, epoch=None,
                        iteration: int = 0, loss: float = 0.0,
                        optimizer_state_dict=None) -> None:
-    """Write a reference-format ``checkpoint.pt``, atomically (a reader
-    never sees half a file): model state, optimizer state (torch Adam's
-    ``state_dict()``, or None), the full hyper-parameter dict, epoch,
-    iteration and loss, all on the CPU."""
-    cfg_dict = cfg if isinstance(cfg, dict) else cfg.to_dict()
-    tmp = f'{path}.tmp'
-    torch.save({'model_state_dict': _to_cpu(dict(state_dict)),
-                'optimizer_state_dict': _to_cpu(optimizer_state_dict),
-                'hyper_parameters': cfg_dict, 'epoch': epoch,
-                'iteration': iteration, 'loss': loss}, tmp)
-    os.replace(tmp, path)
+    """Write a reference-format ``checkpoint.pt`` (``checkpoint_payload``),
+    atomically."""
+    write_checkpoint_pt(path, checkpoint_payload(
+        state_dict, cfg, epoch=epoch, iteration=iteration, loss=loss,
+        optimizer_state_dict=optimizer_state_dict))
 
 
 def read_checkpoint_pt(path: str) -> dict:

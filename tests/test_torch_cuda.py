@@ -926,3 +926,46 @@ def test_sharded_validation_on_card_matches_whole(cuda, tmp_path):
     for name in ('ens', 'space'):
         for got, want in zip(out[name], out['whole']):
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('step', [0.05, 0.005])
+def test_count_modes_on_card_matches_cpu(cuda, step):
+    """gmm_cnt on the card against its CPU path, 70 members, 8192 pixels:
+    the density within rtol 1e-5 (atol: the largest term whose exponential
+    is denormal); every local-maximum decision that the two take apart is
+    a near tie (its float64 values within 1e-5 of each other); the card's
+    count_modes gives the maps of its own density, and the CPU path's maps
+    equal them at every pixel without a near tie."""
+    from mmlf_tpu_torch.utils import gmm_cnt as G
+    rng = np.random.default_rng(0)
+    k, h, w = 70, 64, 128
+    gmm = np.stack([rng.normal(0, 1, (k, h, w)),
+                    rng.uniform(0.5, 1.6, (k, h, w))]).astype(np.float32)
+    means = torch.from_numpy(gmm[0].reshape(k, -1))
+    variances = torch.from_numpy(gmm[1].reshape(k, -1))
+    grid = torch.from_numpy(np.arange(-3.5, 3.5, step, dtype=np.float32))
+    dens = G.mixture_on_grid(means.to(cuda), variances.to(cuda),
+                             grid.to(cuda))
+    dens_cpu = G.mixture_on_grid(means, variances, grid)
+    vmin = float(variances.min())
+    atol = float(np.finfo(np.float32).tiny) / (
+        (2.0 * np.pi * vmin) ** 0.5 * vmin)
+    torch.testing.assert_close(dens.cpu(), dens_cpu, rtol=1e-5, atol=atol)
+    d64 = G.mixture_on_grid(means.double().to(cuda),
+                            variances.double().to(cuda),
+                            grid.double().to(cuda)).cpu()
+    close = (d64[1:] - d64[:-1]).abs() <= \
+        1e-5 * torch.maximum(d64[1:], d64[:-1])
+    ties = torch.zeros_like(d64, dtype=torch.bool)
+    ties[1:-1] = close[:-1] | close[1:]
+    is_max = G.local_maxima(dens)
+    flips = is_max.cpu() != G.local_maxima(dens_cpu)
+    assert not (flips & ~ties).any()
+    got = G.count_modes(gmm, -3.5, 3.5, step, device='cuda')
+    for g, m in zip(got, G.mode_maps(is_max, -3.5, step)):
+        np.testing.assert_array_equal(g.reshape(-1), m.cpu().numpy())
+    want = G.count_modes(gmm, -3.5, 3.5, step, device='cpu')
+    tied = ties.any(0).numpy().reshape(h, w)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        np.testing.assert_array_equal(g[~tied], x[~tied])

@@ -25,16 +25,24 @@ assert {'mmlf_tpu_torch.validate.tiling', 'mmlf_tpu_torch.export',
         'mmlf_tpu_torch.probes.block_probe',
         'mmlf_tpu_torch.probes.gather_probe', 'mmlf_tpu_torch.models.inn',
         'mmlf_tpu_torch.models.invertible',
-        'mmlf_tpu_torch.validate.spatial'} <= set(names)
+        'mmlf_tpu_torch.validate.spatial',
+        'mmlf_tpu_torch.validate.sparsify', 'mmlf_tpu_torch.validate.cluster',
+        'mmlf_tpu_torch.validate.edges', 'mmlf_tpu_torch.validate.multimodal',
+        'mmlf_tpu_torch.validate.mm_prediction',
+        'mmlf_tpu_torch.utils.modecnt', 'mmlf_tpu_torch.utils.gmm_cnt',
+        'mmlf_tpu_torch.utils.gmm2csv', 'mmlf_tpu_torch.utils.gmm2csv2',
+        'mmlf_tpu_torch.utils.nll2csv', 'mmlf_tpu_torch.utils.post2csv',
+        'mmlf_tpu_torch.utils.uncert2csv', 'mmlf_tpu_torch.utils.dl',
+        'mmlf_tpu_torch.visualize.plot'} <= set(names)
 for name in names:
     importlib.import_module(name)
 from mmlf_tpu_torch.ops.kernels import build
 from mmlf_tpu_torch import native
 bad = sorted(k for k in sys.modules
              if k in ('jax', 'flax', 'optax', 'msgpack', 'triton',
-                      'mmlf_tpu')
+                      'mmlf_tpu', 'matplotlib')
              or k.startswith(('jax.', 'flax.', 'optax.', 'msgpack.',
-                              'mmlf_tpu.')))
+                              'mmlf_tpu.', 'matplotlib.')))
 assert not bad, bad
 assert build.load.cache_info().currsize == 0, 'a kernel was loaded'
 assert not native._Loaded.tried, 'the host library was loaded at import'
@@ -47,7 +55,7 @@ def test_port_imports_no_jax_or_mmlf_tpu():
     proc = subprocess.run([sys.executable, '-c', _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 43
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 66
 
 
 # an import of jax/flax/optax/msgpack/mmlf_tpu (not mmlf_tpu_torch), in
@@ -70,7 +78,7 @@ def test_sources_have_no_forbidden_imports():
                     text = fh.read()
                 assert not _FORBIDDEN.search(text), os.path.join(root, f)
                 scanned += 1
-    assert scanned >= 44
+    assert scanned >= 67
     for script in ('chip_smoke.py', 'k3_variants.py'):
         with open(os.path.join(REPO, script)) as fh:
             assert not _FORBIDDEN.search(fh.read()), script
@@ -120,6 +128,17 @@ def test_entry_points_raise_without_cuda(tmp_path):
                lambda: gather_probe.run('probe3')):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             fn()
+
+    import numpy as np
+    from mmlf_tpu_torch.utils import gmm_cnt
+    gmm = np.ones((2, 3, 4, 4), np.float32)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        gmm_cnt.count_modes(gmm, -3.5, 3.5, 0.1)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        gmm_cnt.count_modes(gmm, -3.5, 3.5, 0.1, device='cuda')
+    res = CliRunner().invoke(gmm_cnt.main, [str(tmp_path), str(tmp_path)])
+    assert isinstance(res.exception, RuntimeError), res.output
+    assert 'CUDA is not available' in str(res.exception)
 
 
 def test_kernel_wrapper_takes_plain_version_only_on_cpu():
@@ -198,3 +217,25 @@ def test_export_and_serve_clis_have_the_jax_flags():
     flags = {p.name: p.default for p in serve.main.params}
     assert flags['device'] == 'cuda' and flags['port'] == 8417 and \
         flags['decode_threads'] == 8 and flags['host'] == '127.0.0.1'
+
+
+def test_package_data_ships_every_source():
+    """Every file under the port's csrc/, csrc_host/ and visualize/*/ (the
+    kernel sources and headers, the host library's source, the TeX figure
+    builds) matches a package-data glob of pyproject.toml."""
+    import glob
+    import tomllib
+    with open(os.path.join(REPO, 'pyproject.toml'), 'rb') as fh:
+        data = tomllib.load(fh)['tool']['setuptools']['package-data']
+    shipped = set()
+    for pkg, patterns in data.items():
+        pkg_dir = os.path.join(REPO, *pkg.split('.'))
+        for pattern in patterns:
+            shipped.update(glob.glob(os.path.join(pkg_dir, pattern)))
+    wanted = [p for sub in ('csrc/*', 'csrc_host/*', 'visualize/*/*')
+              for p in glob.glob(os.path.join(PKG, sub))
+              if os.path.isfile(p)]
+    assert len(wanted) >= 9
+    missing = sorted(os.path.relpath(p, REPO) for p in wanted
+                     if p not in shipped)
+    assert not missing, missing

@@ -27,7 +27,7 @@ from mmlf_tpu_torch.data.hci4d import HCI4D
 from mmlf_tpu_torch.data.pipeline import DevicePipeline
 from mmlf_tpu_torch.models.feed_forward import FeedForward, init_default_
 from mmlf_tpu_torch.train import loop
-from mmlf_tpu_torch.train.checkpoint import load_checkpoint
+from mmlf_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 
 
@@ -533,6 +533,13 @@ def _slice_matches_jax_then_validates(data_dirs, tmp_path, **extra):
     assert ckpt['iteration'] == 3 and ckpt['epoch'] == 0
     assert ckpt['hyper_parameters'] == cfg.to_dict()
     assert ckpt['optimizer_state_dict']['state'][0]['step'] == 3
+    # the rolling checkpoint, written on the saver's thread, equals a
+    # synchronous save of the final state
+    sync = str(tmp_path / 'sync')
+    os.makedirs(sync)
+    save_checkpoint(sync, state.model, state.optimizer, cfg, ckpt['epoch'],
+                    ckpt['iteration'], ckpt['loss'])
+    _assert_same_payload(ckpt, load_checkpoint(sync))
     assert os.path.exists(os.path.join(tout, 'ours', 'disp_maps'))
 
     val_dir = data_dirs[1]
@@ -543,6 +550,22 @@ def _slice_matches_jax_then_validates(data_dirs, tmp_path, **extra):
     for f in ('result.pfm', 'uncert.pfm', 'gmm.npy', 'posterior.npy'):
         assert os.path.exists(os.path.join(scene, f)), f
     assert np.load(os.path.join(scene, 'gmm.npy')).shape == (2, 70, 64, 64)
+
+
+def _assert_same_payload(got, want, path='payload'):
+    """Equal nested checkpoint payloads: tensors bit for bit."""
+    if torch.is_tensor(want):
+        assert torch.equal(got, want), path
+    elif isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        for k in want:
+            _assert_same_payload(got[k], want[k], f'{path}.{k}')
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for j, (g, w) in enumerate(zip(got, want)):
+            _assert_same_payload(g, w, f'{path}[{j}]')
+    else:
+        assert got == want, path
 
 
 def test_resume_continues_with_mixed_seed(data_dirs, tmp_path, monkeypatch):
