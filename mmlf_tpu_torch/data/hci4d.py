@@ -21,6 +21,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ..ops.masks import create_mask_texture
+from ..trace import span
 from ..utils import pfm
 from ..utils.imgio import load_img, load_img_u8, save_img
 from ..utils.lf import save_views
@@ -67,6 +68,7 @@ def _pick_gt_pfm(scene: str, nviews) -> Optional[str]:
     return os.path.join(scene, pfms[0]) if pfms else None
 
 
+@span('mmlf.data.load_scene')
 def load_scene(scene: str, nviews=(9, 9), index: int = 0,
                texture_mask: bool = True, raw_views: bool = False,
                threads: int = 0):

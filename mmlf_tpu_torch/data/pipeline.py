@@ -55,6 +55,7 @@ from ..config import Config
 from ..native import strided_window
 from ..ops.kernels.window_gather import AUX_CH, MPI_CH, window_gather
 from ..ops.shift import shift_lf
+from ..trace import span
 from . import transforms as T
 from .hci4d import HCI4D, pad_mpi
 
@@ -133,18 +134,19 @@ class TrainPipeline:
 
         self.scenes = []
         for data in dataset.data:
-            h, v, i, d, center, gt, mpi, mask, _ = data
-            if cfg.train_shift != 0.0:
-                # the static Shift is deterministic and first in the chain:
-                # applied once here
-                h, v, i, d = T.np_shift_lf(h, v, i, d, cfg.train_shift)
-                gt = gt - np.float32(cfg.train_shift)
-                mpi = mpi.copy()
-                mpi[..., 4] -= np.float32(cfg.train_shift)
-            self.scenes.append(dict(
-                h=h, v=v, i=i, d=d, gt=gt.astype(np.float32),
-                mpi=pad_mpi(mpi.astype(np.float32), MAX_PLANES),
-                mask=mask.astype(np.int32)))
+            with span('mmlf.pipeline.shift'):
+                h, v, i, d, center, gt, mpi, mask, _ = data
+                if cfg.train_shift != 0.0:
+                    # the static Shift is deterministic and first in the
+                    # chain: applied once here
+                    h, v, i, d = T.np_shift_lf(h, v, i, d, cfg.train_shift)
+                    gt = gt - np.float32(cfg.train_shift)
+                    mpi = mpi.copy()
+                    mpi[..., 4] -= np.float32(cfg.train_shift)
+                self.scenes.append(dict(
+                    h=h, v=v, i=i, d=d, gt=gt.astype(np.float32),
+                    mpi=pad_mpi(mpi.astype(np.float32), MAX_PLANES),
+                    mask=mask.astype(np.int32)))
 
         # clamp the downsample range to factors whose level still fits one
         # window
@@ -523,8 +525,9 @@ class DevicePipeline(TrainPipeline):
                              f'{sorted(shapes)}')
         self.scene_shape = shapes.pop()
         img_dtype = torch.bfloat16 if cfg.cache_bf16 else torch.float32
-        self.cache = build_device_cache(self.scenes, self.max_f, device,
-                                        img_dtype)
+        with span('mmlf.pipeline.pack'):
+            self.cache = build_device_cache(self.scenes, self.max_f, device,
+                                            img_dtype)
 
     def _stratified_rot(self, batch_size: int) -> np.ndarray:
         """Rotations drawn as the JAX package draws them: within each

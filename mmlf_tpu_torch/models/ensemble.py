@@ -25,6 +25,7 @@ from ..ops.kernels.posterior import (ensemble_posterior,
                                      laplace_mixture_posterior)
 from ..ops.shift import shift_lf
 from ..parallel import mesh
+from ..trace import span
 
 
 def ensemble_grid(disp_min: float, disp_max: float,
@@ -54,10 +55,11 @@ def ensemble_forward(model, h_views, v_views, i_views, d_views,
     n_members = shifts.shape[0]
     offsets = _offsets(member_offsets, n_members)
 
-    means, logvars, best_lv, best_mean = _run_members(
-        model, (h_views, v_views, i_views, d_views), shifts, offsets,
-        n_members)
-    posterior = ensemble_posterior(means, logvars, disp_min, disp_max)
+    with span('mmlf.val.members'):
+        means, logvars, best_lv, best_mean = _run_members(
+            model, (h_views, v_views, i_views, d_views), shifts, offsets,
+            n_members)
+        posterior = ensemble_posterior(means, logvars, disp_min, disp_max)
     return {
         'mean': best_mean,
         'logvar': best_lv,

@@ -99,6 +99,7 @@ from ..models.invertible import NOT_SUPPORTED_MSG
 from ..ops.codecs import mpi_to_weights, reg_to_class
 from ..ops.masks import create_mask_margin
 from ..parallel import mesh
+from ..trace import span
 from ..utils.device import resolve_device
 from ..validate.cli import make_scene_eval, scene_to_device
 from .checkpoint import ModelSaver, has_checkpoint, load_checkpoint
@@ -252,32 +253,36 @@ def microbatch_loss(cfg: Config, model: torch.nn.Module,
     backward.  Under data parallel ``chunk`` is the rank's part of the
     microbatch, and the loss and count are the whole microbatch's (the
     outputs and targets gathered from every rank)."""
-    if cache is None:
-        h, v, i, d, gt, mpi, mask = augment_host_batch(chunk, cfg.train_ps)
-    else:
-        h, v, i, d, gt, mpi, mask = gather_augment(
-            cache, chunk, cfg.train_ps, window_size(cfg.train_ps),
-            with_mpi=with_mpi(cfg))
-    output = model(h, v, i, d, folded=True)
-    if mesh.world() > 1:
-        if cfg.model_inn:
-            # the IB loss reads every sample's dists and jac, and zixels'
-            # H, W and mu, the same on every rank
-            output = dict(output, dists=mesh.all_gather(output['dists']),
-                          jac=mesh.all_gather(output['jac']))
+    with span('mmlf.train.augment'):
+        if cache is None:
+            h, v, i, d, gt, mpi, mask = augment_host_batch(chunk, cfg.train_ps)
         else:
-            output = {k: mesh.all_gather(output[k])
-                      for k in ('mean', 'logvar', 'scores')
-                      if output.get(k) is not None}
-        gt, mask = mesh.all_gather(gt), mesh.all_gather(mask)
-        mpi = None if mpi is None else mesh.all_gather(mpi)
-    gt, mpi, gt_classes, mask, mask_padding = prepare_targets(cfg, gt, mpi,
-                                                              mask)
-    loss = compute_loss(cfg, output, gt, mpi, gt_classes, mask,
-                        mask_padding, step=step)
-    return loss, torch.sum(mask).float()
+            h, v, i, d, gt, mpi, mask = gather_augment(
+                cache, chunk, cfg.train_ps, window_size(cfg.train_ps),
+                with_mpi=with_mpi(cfg))
+    with span('mmlf.train.forward'):
+        output = model(h, v, i, d, folded=True)
+        if mesh.world() > 1:
+            if cfg.model_inn:
+                # the IB loss reads every sample's dists and jac, and
+                # zixels' H, W and mu, the same on every rank
+                output = dict(output,
+                              dists=mesh.all_gather(output['dists']),
+                              jac=mesh.all_gather(output['jac']))
+            else:
+                output = {k: mesh.all_gather(output[k])
+                          for k in ('mean', 'logvar', 'scores')
+                          if output.get(k) is not None}
+            gt, mask = mesh.all_gather(gt), mesh.all_gather(mask)
+            mpi = None if mpi is None else mesh.all_gather(mpi)
+        gt, mpi, gt_classes, mask, mask_padding = prepare_targets(
+            cfg, gt, mpi, mask)
+        loss = compute_loss(cfg, output, gt, mpi, gt_classes, mask,
+                            mask_padding, step=step)
+        return loss, torch.sum(mask).float()
 
 
+@span('mmlf.train.step')
 def train_step(cfg: Config, model: torch.nn.Module, optimizer, cache, batch,
                step: int, bn_train: bool = True) -> torch.Tensor:
     """One optimizer step over ``batch`` (``train_accum`` microbatches): a
@@ -306,28 +311,30 @@ def train_step(cfg: Config, model: torch.nn.Module, optimizer, cache, batch,
                                       chunk_slice(batch, c * size,
                                                   (c + 1) * size), step)
         w = n_c if exact else 1.0 / accum
-        (loss_c * w).backward()
+        with span('mmlf.train.backward'):
+            (loss_c * w).backward()
         total = total + w * loss_c.detach()
         n_total = n_total + n_c
         if c == 0 and accum > 1:
             # the running statistics of chunk 0 are the step's (the fused
             # trunk updates the same BN buffers in place)
             stats0 = [b.detach().clone() for b in model.buffers()]
-    mesh.sum_gradients(model.parameters())
     if stats0 is not None:
         with torch.no_grad():
             for b, b0 in zip(model.buffers(), stats0):
                 b.copy_(b0)
-    if exact:
-        norm = torch.clamp(n_total, min=1.0)
-        total = total / norm
-        for p in model.parameters():
-            p.grad.div_(norm)
-
     lr = lr_schedule(cfg, step)
     for group in optimizer.param_groups:
         group['lr'] = lr
-    optimizer.step()
+
+    with span('mmlf.train.optimizer'):
+        mesh.sum_gradients(model.parameters())
+        if exact:
+            norm = torch.clamp(n_total, min=1.0)
+            total = total / norm
+            for p in model.parameters():
+                p.grad.div_(norm)
+        optimizer.step()
     return total
 
 

@@ -69,6 +69,7 @@ from ..models.ensemble import (ensemble_forward, ensemble_forward_sharded,
 from ..ops.codecs import mpi_to_weights
 from ..ops.masks import create_mask_margin
 from ..parallel import mesh
+from ..trace import span
 from ..train.checkpoint import CKPT_MSGPACK, CKPT_PT, load_checkpoint_raw
 from ..utils.convert import load_checkpoint_pt, state_dict_from_jax
 from ..utils.device import resolve_device
@@ -366,30 +367,40 @@ def run_validation(output_dir, dataset, model_discrete=False,
         say(f'Processing scene {i}...')
         t_start = time.time()
 
-        sample = valset[i]
+        with span('mmlf.val.load'):
+            sample = valset[i]
+            stacks, gt_t, mpi_t = scene_to_device(sample, dev)
         gt, index = sample[5], sample[8]
-        stacks, gt_t, mpi_t = scene_to_device(sample, dev)
         output, metrics = scene_eval(*stacks, gt_t, mpi_t, member_offsets)
         if not lead:
             continue
-        metrics = {k: float(v) for k, v in metrics.items()}
 
-        means_np = logvars_np = None
-        if output.get('means') is not None:
-            means_np = output['means'].cpu().numpy()
-            logvars_np = output['logvars'].cpu().numpy()
+        # the host's waits for the card: the metrics and every output
+        with span('mmlf.val.readback'):
+            metrics = {k: float(v) for k, v in metrics.items()}
+            means_np = logvars_np = None
+            if output.get('means') is not None:
+                means_np = output['means'].cpu().numpy()
+                logvars_np = output['logvars'].cpu().numpy()
+            mean = output['mean'].cpu().numpy()
+            logvar = output.get('logvar')
+            logvar = None if logvar is None else logvar.cpu().numpy()
+            scores = output.get('scores')
+            nll_arr = None if scores is None else \
+                scores.permute(0, 3, 1, 2).cpu().numpy()
+            posterior = output.get('posterior')
+            post_arr = None if posterior is None else \
+                posterior.permute(0, 3, 1, 2).cpu().numpy()
+
         if val_ensamble and means_np is not None:
-            m = create_mask_margin(gt.shape, val_loss_margin).numpy()
-            cal_scenes.append(calibrate.scene_calibration(
-                shifts_grid, means_np[:, 0], logvars_np[:, 0], gt, m))
+            with span('mmlf.val.calibration'):
+                m = create_mask_margin(gt.shape, val_loss_margin).numpy()
+                cal_scenes.append(calibrate.scene_calibration(
+                    shifts_grid, means_np[:, 0], logvars_np[:, 0], gt, m))
 
         mse_avg += metrics['mse']
         bad_pix_avg += metrics['bad_pix']
         print(metrics['mse'], metrics['bad_pix'])
-
-        mean = output['mean'].cpu().numpy()
-        logvar = output.get('logvar')
-        logvar = None if logvar is None else logvar.cpu().numpy()
 
         # ESE mixture parameters; note vars := exp(logvars) — the reference
         # stores and *reuses* these as "logvars" downstream (quirk)
@@ -397,17 +408,10 @@ def run_validation(output_dir, dataset, model_discrete=False,
         if means_np is not None and logvars_np is not None:
             lmm = np.stack([means_np, np.exp(logvars_np)], 0)
 
-        scores = output.get('scores')
-        nll_arr = None if scores is None else \
-            scores.permute(0, 3, 1, 2).cpu().numpy()
-
-        posterior = output.get('posterior')
-        post_arr = None if posterior is None else \
-            posterior.permute(0, 3, 1, 2).cpu().numpy()
-
         runtime = time.time() - t_start
-        valset.save_batch(output_dir, np.asarray(index)[None], mean,
-                          logvar, runtime, lmm, nll_arr, post_arr)
+        with span('mmlf.val.save'):
+            valset.save_batch(output_dir, np.asarray(index)[None], mean,
+                              logvar, runtime, lmm, nll_arr, post_arr)
 
         nll_eval = metrics['nll']
         print(metrics['kld_um'], metrics['kld_mm'], metrics['kld'])
