@@ -32,9 +32,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. card    — the card's name and power limit (nvidia-smi);
 2. build   — every CUDA kernel of mmlf_tpu_torch/csrc, one nvcc each,
-             started together, with each kernel's ptxas report (and the
+             started together, with each kernel's ptxas report (the
              registers and spill bytes of each bf16 conv2x2_kernel and
-             wgrad_kernel instance);
+             wgrad_kernel instance, and how often ptxas says it
+             serialized wgmma);
 3. data    — 4 synthetic 512² train scenes (seeds 0-3) and one val scene
              (seed 7), one process each;
 3b. host   — the port's host library (csrc_host/mmlf_native.cpp) built by
@@ -2761,9 +2762,12 @@ def main() -> int:
         regs = [int(w) for w in re.findall(r'Used (\d+) registers', report)]
         spills = [int(w) for w in re.findall(r'(\d+) bytes spill stores',
                                              report)]
+        # ptxas waits for every wgmma itself where it cannot keep one in
+        # flight, and says so
+        serial = report.count('wgmma.mma_async instructions are serialized')
         log(f'build: {name}: {len(regs)} kernel instantiation(s), '
             f'{min(regs)}-{max(regs)} registers, spill stores up to '
-            f'{max(spills)} bytes')
+            f'{max(spills)} bytes, {serial} with wgmma serialized')
     log('build: posterior by bins per thread: '
         + k2_instances(build.ptxas_report('posterior')))
     log('build: conv_block bf16 conv2x2_kernel and wgrad_kernel instances: '

@@ -34,6 +34,12 @@ The weight gradients' producer (``produce_wgrad_spans``,
 - ``wg_nocopy``: no bulk copy is issued (and no byte announced): the
   transform reads whatever the ring holds.
 
+Both GEMMs' consumer (``consume``):
+- ``noproducts``: the consumers wait for each stage and free it with no
+  products and no flush into fp32 registers: the time left is the
+  producers', the copies' and the epilogue's, the most a faster consumer
+  can give.
+
 ``--parent FILE`` adds the variant ``parent``, another version of the
 source (say, the parent commit's), driven by this tree's wrapper (the C
 interface must match).  For it the script also runs the backward of every
@@ -73,6 +79,7 @@ def variants(src: str) -> dict:
     span = ('struct SpanLoader {', '\n};\n')
     wprod = ('produce_wgrad_spans(WgradSpanLoader<C>& ld', '\n}\n')
     wspan = ('struct WgradSpanLoader {', '\n};\n')
+    cons = ('void consume(const OpSmem<C>& sm', '\n}\n')
     wait = '    mbar_wait(sm.full + slot, (kt / STAGES) & 1);\n'
     barrier = '    bar_sync(BAR_PRODUCERS, THREADS);\n'
     transform = '    ld.transform(kt, kt % STAGES, buf);\n'
@@ -81,6 +88,17 @@ def variants(src: str) -> dict:
     wg_transform = '    ld.transform(kt, buf);\n'
     wg_wait_only = ('    mbar_wait(ld.sm.full + (kt / D & 1), '
                     'kt / D >> 1 & 1);\n')
+
+    def noproducts() -> str:
+        part = body(*cons)
+        calls = [line for line in part.splitlines(True)
+                 if 'stage_products<C>(' in line]
+        assert len(calls) == 1, calls
+        # a flush of each stage into fp32 registers, where there is one
+        new = part.replace(calls[0], '').replace(
+            'acc[mi][i] += t[mi][i];', ';')
+        return src.replace(part, new)
+
     return {
         'base': src,
         'nofence': within(*prod, '    fence_proxy_async();\n', ''),
@@ -95,6 +113,7 @@ def variants(src: str) -> dict:
         'wg_notransform': within(*wprod, wg_transform, wg_wait_only),
         'wg_nocopy': within(*wspan, '    } else {\n      return;\n    }\n',
                             '    }\n    return;\n'),
+        'noproducts': noproducts(),
     }
 
 

@@ -37,9 +37,11 @@
 // FFMA dot product's error against float64, where one TF32 product (11 bits)
 // is ~500x off.  The tensor core rounds its fp32 sums its own way (measured
 // on the card with mma.sync: one chain over all of K ends 20-160x further
-// from float64 than fp32, and biased), so each chain of wgmma runs over one
-// 16-deep stage only and is then added into fp32 registers; the partial
-// sums over images and pixel chunks are added in fp64.
+// from float64 than fp32, and biased; with wgmma summing all of K with a
+// stage in flight, the 280 -> 280 y2 ended 4.5x further than cuDNN's fp32,
+// past the 4x its check allows), so each chain of wgmma runs over one
+// 16-deep stage only and is then added into fp32 registers (CHAIN 1); the
+// partial sums over images and pixel chunks are added in fp64.
 //
 // What bounds it on an H100 SXM: operations.  At the recipe's out_net shape
 // (B 64, 96x96, 280 -> 280) the forward is 2 * 4 * 280^2 * (97^2 + 96^2) * 64
@@ -72,7 +74,8 @@
 //     the 64-byte swizzle, which tf32 wgmma needs (both operands K-major;
 //     NCHW pixels are not).  NBUF operand buffers and named barriers pass
 //     stages between the roles; setmaxnreg gives the consumers the
-//     registers for two accumulator sets.
+//     registers for two accumulator sets: the chain of tensor-core sums
+//     and the fp32 sums it is added into (consume).
 //   * Epilogue through shared memory: the accumulators go to a (TN, TM)
 //     tile, then each consumer writes one row (pixel or im2col column) of
 //     every channel, so stores to NCHW are coalesced along pixel rows.
@@ -109,7 +112,17 @@
 // Every GEMM takes bf16 operands in wgmma m64nNk16 .bf16 with fp32 sums:
 // one product where 3xTF32 takes three, so no split.  A stage is 32 k (one
 // 64-byte operand row holds 16 bf16 pairs, 8 input channels of a conv), so
-// the swizzled tiles and the descriptors keep their byte layout.
+// the swizzled tiles and the descriptors keep their byte layout.  The
+// consumers keep a stage's products in flight and sum chains of CHAIN = 4
+// stages in the wgmma accumulators before adding them into fp32 registers
+// (consume).  Measured on the card against the plain version in float64:
+// chains over a whole wgrad chunk (128 stages) put dW2 12-15x further than
+// cuDNN's fp32 wgrad, past the 4x its check allows; chains of 8 kept every
+// output within 3.3x but put 1.01-1.07x as many of the probe block's y2
+// values more than a bf16 ulp off as cuDNN's fp32 does (the check allows
+// 1x); chains of 4 keep 3.3x and 0.57x and are as fast as 8 (chains of 2:
+// 1.8x, 0.43x, a ~2% slower backward).  Four operand buffers (NBUF) keep
+// the producers' lead with a stage in flight.
 //   * The conv GEMMs (y1, y2, dgrad2, dgrad1) are fed by a ring of channel
 //     spans (SpanLoader).  A tile's TM output pixels are consecutive in
 //     (b, oy, ox), and the tap (0, 0) of pixel (oy, ox) sits at (oy - pad)
@@ -138,11 +151,10 @@
 //     allocation, which the caller pads to a 16-byte multiple.  The span
 //     ring is ~6-8 KB a stage (the word ring: 16.5 KB), so the narrow
 //     tiles take 256 rows as fp32's do.  What holds it from the bound
-//     (measured on the card with k3_variants.py, 280 -> 280 forward): with
-//     the producers' transform left out the block takes ~0.8x as long;
-//     that floor is the consumers' (a wait for each stage's two products,
-//     then their flush into the fp32 sums) and the epilogue's, ~3x the
-//     tensor-core time of a stage.
+//     (measured on the card with k3_variants.py, 280 -> 280 forward,
+//     5.9-6.0 ms): the producers' transform.  With no products at all the
+//     block takes 5.5 ms (the producers alone), with the transform left
+//     out 4.7 ms (the copies, the consumers and the epilogue).
 //   * The weight gradients (dW2 = sum g2 (x) taps(y1), dW1 = sum dy1 (x)
 //     taps(z)) are fed by spans too (WgradSpanLoader).  There A's rows are
 //     the im2col columns (ci, tap) of 32 x channels, B's the gradient's TN
@@ -170,11 +182,11 @@
 //     masks (taps outside the image, pixels past the chunk's end).  The
 //     consumers free an operand buffer on an mbarrier, so the producer
 //     warps do not wait for each other every stage.  The operands, the
-//     stages, the chunks and the order of every sum are the word ring's
-//     exactly, and so are the weight gradients.  What holds it from the
-//     bound (measured on the card with k3_variants.py, 280 -> 280): the
-//     transform (the wgrads take ~0.5x as long without it) and the copies
-//     (~0.7x without them).
+//     stages and the chunks are those of the word ring that came before.
+//     What holds it from the bound (measured on the card with
+//     k3_variants.py, 280 -> 280, 6.2-6.4 ms for both): the transform.
+//     Without it the wgrads take 3.1 ms (the copies, the consumers and the
+//     epilogue), with no products 5.8 ms (the producers alone).
 // Bound on an H100 SXM: operations at the dense bf16 tensor-core peak, 989
 // TFLOP/s: 0.76 ms forward and 1.9 ms backward at 280 -> 280, B 64, 96x96.
 
@@ -188,7 +200,6 @@ namespace {
 
 constexpr int THREADS = 256;   // two warpgroups; a GEMM block has 2 x
 constexpr int STAGES = 4;      // slots of the cp.async ring or the span ring
-constexpr int NBUF = 3;        // operand buffers between producers and consumers
 // registers a thread, moved by setmaxnreg: 2 x 128 x (176 + 80) = 65536
 constexpr int CONSUMER_REGS = 176, PRODUCER_REGS = 80;
 constexpr int WGRAD_TARGET_BLOCKS = 2 * 132;
@@ -196,13 +207,19 @@ constexpr int WGRAD_GROUP = 4;  // stages of a bf16 wgrad span copy group
 constexpr long long WGRAD_MAX_CHUNK = 4096;   // pixels per wgrad partial
 
 // The two instances: the element of the canvases and operands, the GEMM
-// depth of a stage (64 bytes of an operand row) and the operand tiles a
-// side (3xTF32: hi and lo).  bf16 values are held as their 16 bits.
+// depth of a stage (64 bytes of an operand row), the operand tiles a side
+// (3xTF32: hi and lo), the operand buffers between producers and consumers
+// (NBUF) and the stages a chain of tensor-core sums runs before it is added
+// into fp32 registers (CHAIN, see consume).  bf16 values are held as their
+// 16 bits.
 struct Tf32x3 {
   using T = float;
   using R = float;               // an element of the cp.async ring
   static constexpr int BK = 16;
   static constexpr int NOP = 2;
+  // the word ring's 256-row tiles have room for three buffers; a chain of
+  // one stage, see "Precision"
+  static constexpr int NBUF = 3, CHAIN = 1;
   // elements a row of the K-major GEMM weight (Cout, 4 Cin)
   static __host__ __device__ int ldw(int cin) { return 4 * cin; }
 };
@@ -211,6 +228,7 @@ struct Bf16 {
   using T = uint16_t;
   static constexpr int BK = 32;
   static constexpr int NOP = 1;
+  static constexpr int NBUF = 4, CHAIN = 4;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -363,8 +381,19 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asm statements that issue and wait for wgmma (the registers
+// belong to the tensor cores in between).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // Operand tiles in shared memory are K-major with the 64-byte swizzle: a
@@ -638,7 +667,7 @@ template <int MI_, int TN_, class P_>
 struct GemmTile {
   using P = P_;
   using T = typename P::T;
-  static constexpr int MI = MI_, TN = TN_, BK = P::BK;
+  static constexpr int MI = MI_, TN = TN_, BK = P::BK, NBUF = P::NBUF;
   static constexpr int TM = 128 * MI;
   static constexpr int ACC = TN / 2;               // fp32 sums a thread, m64
   // operand tiles of one stage, 32-bit words (a row is 64 bytes: 16 tf32 or
@@ -651,6 +680,7 @@ struct GemmTile {
   // named barrier bar_empty, which all producers wait on together)
   static constexpr bool EMPTY_MBAR = false;
   static_assert(TN % 8 == 0 && TN <= 256, "wgmma N");
+  static_assert(NBUF <= 4, "named barriers");
 };
 
 // A float32 tile fed by the cp.async ring of words (ConvLoader,
@@ -667,7 +697,7 @@ struct Cfg : GemmTile<MI_, TN_, P_> {
   static constexpr int RAW_A = G::BK * RA;
   static constexpr int RAW_B =
       TN_ * RBC > G::BK * RB ? TN_ * RBC : G::BK * RB;
-  static constexpr int MAIN = 4 * NBUF * G::OP +
+  static constexpr int MAIN = 4 * G::NBUF * G::OP +
                               4 * STAGES * (RAW_A + RAW_B) + STAGES * THREADS;
   static constexpr int SMEM = MAIN > G::EPI ? MAIN : G::EPI;
   static_assert(sizeof(R) == 4, "ring entries of 4 bytes");
@@ -686,12 +716,12 @@ struct SpanCfg : GemmTile<MI_, TN_, Bf16> {
   static constexpr int CPS = Bf16::BK / 4;         // channels a stage
   static __host__ __device__ long long area(int span) {
     const long long main =
-        4LL * NBUF * G::OP + 2LL * STAGES * CPS * span;
+        4LL * G::NBUF * G::OP + 2LL * STAGES * CPS * span;
     return main > G::EPI ? main : G::EPI;
   }
   // + the mbarriers; si and ti follow
   static __host__ __device__ long long smem(int span) {
-    return area(span) + 8 * (STAGES + NBUF);
+    return area(span) + 8 * (STAGES + G::NBUF);
   }
 };
 
@@ -712,7 +742,7 @@ struct WgradSpanCfg : GemmTile<1, TN_, Bf16> {
   }
   static __host__ __device__ long long area(int span_a, int span_b,
                                             int win) {
-    const long long main = 4LL * NBUF * G::OP +
+    const long long main = 4LL * G::NBUF * G::OP +
                            4LL * slot_elems(span_a, span_b) +
                            ((2LL * (win + 8) + 15) & ~15LL);
     return main > G::EPI ? main : G::EPI;
@@ -720,7 +750,7 @@ struct WgradSpanCfg : GemmTile<1, TN_, Bf16> {
   // + the pixel tables and the mbarriers; si and ti follow
   static __host__ __device__ long long smem(int span_a, int span_b,
                                             int win) {
-    return area(span_a, span_b, win) + 2 * 16LL * PIX + 8 * (2 + NBUF);
+    return area(span_a, span_b, win) + 2 * 16LL * PIX + 8 * (2 + G::NBUF);
   }
 };
 
@@ -794,7 +824,7 @@ struct Smem : OpSmem<C> {
 
   __device__ explicit Smem(unsigned char* base, int = 0, int = 0, int = 0)
       : OpSmem<C>(base, C::SMEM) {
-    raw_a = reinterpret_cast<R*>(this->op + NBUF * C::OP);
+    raw_a = reinterpret_cast<R*>(this->op + C::NBUF * C::OP);
     raw_b = raw_a + STAGES * C::RAW_A;
     mask = reinterpret_cast<unsigned char*>(raw_b + STAGES * C::RAW_B);
   }
@@ -812,7 +842,7 @@ struct SpanSmem : OpSmem<C> {
 
   __device__ SpanSmem(unsigned char* base, int span_)
       : OpSmem<C>(base, C::smem(span_)), span(span_) {
-    ring = reinterpret_cast<uint16_t*>(this->op + NBUF * C::OP);
+    ring = reinterpret_cast<uint16_t*>(this->op + C::NBUF * C::OP);
     full = reinterpret_cast<uint64_t*>(base + C::area(span_));
     wfull = full + STAGES;
   }
@@ -835,22 +865,23 @@ struct WgradSpanSmem : OpSmem<C> {
                            int win)
       : OpSmem<C>(base, C::smem(span_a_, span_b_, win)), span_a(span_a_),
         span_b(span_b_), slot((int)C::slot_elems(span_a_, span_b_)) {
-    ring = reinterpret_cast<uint16_t*>(this->op + NBUF * C::OP);
+    ring = reinterpret_cast<uint16_t*>(this->op + C::NBUF * C::OP);
     pix = reinterpret_cast<int4*>(base + C::area(span_a_, span_b_, win));
     full = reinterpret_cast<uint64_t*>(pix + 2 * C::PIX);
     empty = full + 2;
   }
 };
 
-// Named barriers: the producers among themselves, the consumers among
-// themselves, "operands of buffer b are ready" for each consumer
-// warpgroup (producers arrive, that warpgroup waits) and "buffer b is
-// free" (consumers arrive, producers wait).
+// Named barriers (16, id 0 is __syncthreads'): the producers among
+// themselves, the consumers among themselves, "operands of buffer b are
+// ready" for each consumer warpgroup (producers arrive, that warpgroup
+// waits) and "buffer b is free" (consumers arrive, producers wait), for up
+// to 4 buffers.
 constexpr int BAR_PRODUCERS = 1, BAR_CONSUMERS = 2;
 __device__ __forceinline__ int bar_full(int buf, int wg) {
   return 3 + 2 * buf + wg;
 }
-__device__ __forceinline__ int bar_empty(int buf) { return 3 + 2 * NBUF + buf; }
+__device__ __forceinline__ int bar_empty(int buf) { return 11 + buf; }
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
@@ -860,13 +891,15 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
-// One stage's products into t (overwritten).  3xTF32: for each 8-deep
-// half the two cross terms lo*hi' and hi*lo', then the two hi*hi' terms.
-// bf16: the two 16-deep halves.  A row is 64 bytes (16 words).
+// One stage's products into d: the stage's first product adds into d when
+// add is 1 and overwrites it when 0.  3xTF32: for each 8-deep half the two
+// cross terms lo*hi' and hi*lo', then the two hi*hi' terms.  bf16: the two
+// 16-deep halves.  A row is 64 bytes (16 words).
 template <class C>
 __device__ __forceinline__ void stage_products(const OpSmem<C>& sm, int buf,
                                                int wg,
-                                               float (&t)[C::MI][C::ACC]) {
+                                               float (&d)[C::MI][C::ACC],
+                                               int add) {
   const uint64_t bh = op_desc(sm.b_hi(buf));
   if constexpr (C::P::NOP == 1) {
 #pragma unroll
@@ -876,7 +909,7 @@ __device__ __forceinline__ void stage_products(const OpSmem<C>& sm, int buf,
       // +32 bytes (2 in descriptor units) = the second 16-deep half
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        wgmma_bf16(t[mi], ah + 2 * h, bh + 2 * h, h);
+        wgmma_bf16(d[mi], ah + 2 * h, bh + 2 * h, add | h);
     }
   } else {
     const uint64_t bl = op_desc(sm.b_lo(buf));
@@ -888,46 +921,65 @@ __device__ __forceinline__ void stage_products(const OpSmem<C>& sm, int buf,
       // +32 bytes (2 in descriptor units) = the second 8-deep half
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        wgmma_tf32(t[mi], al + 2 * h, bh + 2 * h, h);
-        wgmma_tf32(t[mi], ah + 2 * h, bl + 2 * h, 1);
+        wgmma_tf32(d[mi], al + 2 * h, bh + 2 * h, add | h);
+        wgmma_tf32(d[mi], ah + 2 * h, bl + 2 * h, 1);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        wgmma_tf32(t[mi], ah + 2 * h, bh + 2 * h, 1);
+        wgmma_tf32(d[mi], ah + 2 * h, bh + 2 * h, 1);
     }
   }
 }
 
 // Consumer side of out[row][col] = sum_k A[k][row] Bm[k][col] over `steps`
-// stages of 16 k: each stage's products in the tensor cores, then added
-// into fp32 registers; the result is left as the (TN, TM) tile
-// sm.out[col * OA + row].  Thread ct = threadIdx.x < THREADS.  With
-// C::EMPTY_MBAR, lane 0 of each warp arrives on empty[buf] when the warp
-// has read buffer buf.
+// stages; the result is left as the (TN, TM) tile sm.out[col * OA + row].
+// Thread ct = threadIdx.x < THREADS.  The stages go in chains of J =
+// P::CHAIN: a chain's products add up in the wgmma accumulators t (its
+// first one overwrites them), and a stage's products stay in flight while
+// the consumers pass the next stage's barrier and issue its products; after
+// each commit they wait until only that stage is pending, so the one before
+// is complete and its operand buffer is freed.  At a chain's end they wait
+// for all, free its last buffer and add t into the fp32 sums acc.  The
+// tensor cores round their own sums another way than fp32, so chains are
+// short (3xTF32 one stage, see "Precision"; bf16 four, see "bfloat16
+// instance"); J = 1 waits for every stage.  A buffer is freed with
+// C::EMPTY_MBAR by lane 0 of each warp on empty[buf], else by all on the
+// named barrier bar_empty(buf).  The epilogue's tile overwrites the
+// operand buffers after the last chain.
 template <class C>
 __device__ __forceinline__ void consume(const OpSmem<C>& sm, int steps,
                                         uint64_t* empty = nullptr) {
+  constexpr int J = C::P::CHAIN, NBUF = C::NBUF;
   const int ct = threadIdx.x, wg = ct >> 7;
   float acc[C::MI][C::ACC], t[C::MI][C::ACC];
 #pragma unroll
   for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
     for (int i = 0; i < C::ACC; ++i) acc[mi][i] = t[mi][i] = 0.f;
-
-  for (int kt = 0; kt < steps; ++kt) {
-    const int buf = kt % NBUF;
-    bar_sync(bar_full(buf, wg), THREADS + 128);
-    wgmma_fence();
-    stage_products<C>(sm, buf, wg, t);
-    wgmma_commit();
-    wgmma_wait_all();
-    if (kt + NBUF < steps) {
-      if constexpr (C::EMPTY_MBAR) {
-        if ((ct & 31) == 0) mbar_arrive(empty + buf);
-      } else {
-        bar_arrive(bar_empty(buf), 2 * THREADS);
-      }
+  auto release = [&](int kt) {   // stage kt's operands were read
+    if (kt + NBUF >= steps) return;
+    if constexpr (C::EMPTY_MBAR) {
+      if ((ct & 31) == 0) mbar_arrive(empty + kt % NBUF);
+    } else {
+      bar_arrive(bar_empty(kt % NBUF), 2 * THREADS);
     }
+  };
+
+  for (int k0 = 0; k0 < steps; k0 += J) {
+    const int n = steps - k0 < J ? steps - k0 : J;
+    for (int j = 0; j < n; ++j) {
+      const int kt = k0 + j, buf = kt % NBUF;
+      bar_sync(bar_full(buf, wg), THREADS + 128);
+      wgmma_fence();
+      stage_products<C>(sm, buf, wg, t, j > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (j > 0) release(kt - 1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < C::MI; ++mi) fence_regs(t[mi]);
+    release(k0 + n - 1);
 #pragma unroll
     for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
@@ -958,6 +1010,7 @@ __device__ __forceinline__ void consume(const OpSmem<C>& sm, int steps,
 template <class C, class Loader>
 __device__ __forceinline__ void produce(Loader& ld, const Smem<C>& sm,
                                         int steps) {
+  constexpr int NBUF = C::NBUF;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < steps) ld.issue(s, s);
@@ -1255,6 +1308,7 @@ struct SpanLoader {
 template <class C>
 __device__ __forceinline__ void produce_spans(const SpanLoader<C>& ld,
                                               int steps) {
+  constexpr int NBUF = C::NBUF;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s)
     if (s < steps) ld.issue(s, s);
@@ -1623,7 +1677,7 @@ struct WgradSpanLoader {
 template <class C>
 __device__ __forceinline__ void produce_wgrad_spans(WgradSpanLoader<C>& ld,
                                                     int steps) {
-  constexpr int D = WGRAD_GROUP;
+  constexpr int D = WGRAD_GROUP, NBUF = C::NBUF;
   const int groups = (steps + D - 1) / D;
   ld.issue(0, 0);
   for (int kt = 0; kt < steps; ++kt) {
@@ -1688,7 +1742,7 @@ conv2x2_kernel(const typename C::T* __restrict__ x,
     if (threadIdx.x == 0) {
       for (int s = 0; s < STAGES; ++s)
         mbar_init(sm.full + s, THREADS / 32);
-      for (int b = 0; b < NBUF; ++b) mbar_init(sm.wfull + b, 1);
+      for (int b = 0; b < C::NBUF; ++b) mbar_init(sm.wfull + b, 1);
       fence_mbar_init();
     }
   }
@@ -1767,7 +1821,8 @@ wgrad_kernel(const typename C::T* __restrict__ g,
   if constexpr (C::SPANS) {
     if (threadIdx.x == 0) {
       for (int h = 0; h < 2; ++h) mbar_init(sm.full + h, THREADS / 32);
-      for (int b = 0; b < NBUF; ++b) mbar_init(sm.empty + b, THREADS / 32);
+      for (int b = 0; b < C::NBUF; ++b)
+        mbar_init(sm.empty + b, THREADS / 32);
       fence_mbar_init();
     }
   }

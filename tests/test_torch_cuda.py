@@ -563,6 +563,57 @@ def test_conv_block_bf16_kernels_match_plain(cuda, size, cin, cout, relu_in,
         assert float(got[1].abs().max() + got[2].abs().max()) == 0.0
 
 
+# K3 where a GEMM's loop is shorter than the pipeline between its producers
+# and consumers (NBUF operand buffers; the bf16 consumers keep a stage of
+# products in flight, free each buffer a stage late and sum chains of 4
+# stages in the tensor cores): conv GEMMs of 1, 2, 3 and 4 stages (a bf16
+# stage is 8 input channels, a float32 one 4; the last of 27 or 15
+# ragged), weight gradients of 1 to 4 stages (1 x 3 x 5 to 1 x 8 x 13: 32
+# pixels a bf16 stage, 16 a float32 one, the last ragged), of 8 and 9 (1 x
+# 15 x 17: two whole chains and one stage past them) and of pixel chunks
+# whose last one ends ragged (3 x 13 x 17).  Dyadic inputs: the float32 kernel is
+# exact, so it is held to K3_REL of the plain version evaluated in float64;
+# bf16 as in the test above.
+K3_SHORT = {'bfloat16': (8, 16, 24, 27), 'float32': (4, 8, 12, 15)}
+
+
+@pytest.mark.parametrize('size', [(1, 3, 5), (1, 5, 9), (2, 5, 7),
+                                  (1, 8, 13), (1, 15, 17), (3, 13, 17)],
+                         ids=['wg1', 'wg2', 'wg3', 'wg4', 'wg8', 'ragged'])
+@pytest.mark.parametrize('stages', [1, 2, 3, 4])
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_conv_block_kernels_short_loops(cuda, dtype, stages, size):
+    c = K3_SHORT[dtype][stages - 1]
+    b, h, w = size
+    bf16 = dtype == 'bfloat16'
+    x, si, ti, w1, b1, w2, b2, dy2, dps, dpss = _k3_inputs(
+        cuda, b, h, w, c, c, seed=c + h + w)
+    if bf16:
+        x, dy2 = x.bfloat16(), dy2.bfloat16()
+    d = [a.double() for a in (si, ti, w1, b1, w2, b2, dps, dpss)]
+    xr, dy2r = (x, dy2) if bf16 else (x.double(), dy2.double())
+    fa = (x, si, ti, w1, b1, w2, b2, True, True)
+    got = C.fused_double_conv_fwd(*fa)
+    plain = C.plain_double_conv_fwd(*fa)
+    ref = C.plain_double_conv_fwd(xr, *d[:6], True, True)
+    # the backward from the reference's y2, in the canvas dtype
+    y2 = ref[0] if bf16 else plain[0]
+    ba = (x, si, ti, w1, b1, w2, y2, dy2, dps, dpss, True, True)
+    got_b = C.fused_double_conv_bwd(*ba)
+    plain_b = C.plain_double_conv_bwd(*ba)
+    ref_b = C.plain_double_conv_bwd(xr, *d[:5], y2 if bf16 else y2.double(),
+                                    dy2r, *d[6:], True, True)
+    torch.cuda.synchronize()
+    names = ('y2', 'ps', 'pss', 'dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2',
+             'db2')
+    for g, p, r, name in zip((*got, *got_b), (*plain, *plain_b),
+                             (*ref, *ref_b), names):
+        if bf16:
+            _assert_bf16_accurate(g, p, r, name)
+        else:
+            _assert_rel(g, r, name)
+
+
 @pytest.mark.parametrize('with_mpi', [False, True])
 def test_window_gather_bf16_matches_plain(cuda, with_mpi):
     """K1 with a bfloat16 image field (``--cache_bf16``) at the recipe

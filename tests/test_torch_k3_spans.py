@@ -36,7 +36,18 @@ def _constant(name: str) -> int:
     return int(m.group(1))
 
 
-STAGES, NBUF = _constant('STAGES'), _constant('NBUF')
+def _instance(name: str, key: str) -> int:
+    """A constant of one of the kernel's instances (``struct Bf16``,
+    ``struct Tf32x3``)."""
+    body = re.search(rf'struct {name} {{(.*?)\n}};', SRC.read_text(), re.S)
+    assert body, name
+    m = re.search(rf'\b{key} = (\d+)', body.group(1))
+    assert m, (name, key)
+    return int(m.group(1))
+
+
+STAGES = _constant('STAGES')
+NBUF = _instance('Bf16', 'NBUF')   # operand buffers of the bf16 instance
 CPS = 8                        # channels a 32-deep bf16 stage
 
 
@@ -581,3 +592,154 @@ def test_wgrad_transform_equals_im2col(b, h, w, pad):
             got = np.where(v, regions['g'][n][pos], 0)
             want = np.where(v, g[bb % b, n, oy % ho, ox % wo], 0)
             np.testing.assert_array_equal(got, want)
+
+
+# The handoff of operand buffers between the producers and the consumers
+# of every K3 GEMM (``produce``, ``produce_spans``, ``produce_wgrad_spans``
+# and ``consume``), restated.  NBUF buffers (a constant of the instance, as
+# CHAIN); stage kt lives in buffer kt % NBUF.  The consumers take the
+# stages in chains of J = CHAIN: for
+# each stage they wait for its buffer to be full, issue its products and
+# commit them, wait until at most one group of products is pending, and
+# free the buffer of the stage before if it is in the same chain; at a
+# chain's end they wait for all and free its last buffer.  A buffer is
+# freed only if a later stage will refill it (stage + NBUF < steps).  The
+# epilogue's tile then overwrites the buffers.  The span conv GEMMs'
+# producers write a buffer's weight rows a stage ahead (at stage kt they
+# wait until the buffer of kt + 1 is free and copy its weights), then its
+# A tile at kt; the word ring's producers and the wgrads' wait for the
+# buffer at kt.  Products complete in order, at any time after their
+# commit, and at the latest when a wait needs them.
+
+def _handoff(path, steps, nbuf, chain, policy, rng, early=False):
+    """Runs one schedule of the handoff; asserts that no buffer is written
+    while products may still read its stage, that the buffer barriers
+    alternate (never two arrivals of one side ahead), that every stage is
+    consumed once, and that the schedule ends with every arrival matched.
+    ``early``: the consumers free stage kt itself (a fault, to show that
+    the model finds it)."""
+    prod = []
+    if path == 'spans':
+        prod.append(('write', 0))            # stage 0's weight rows
+    for kt in range(steps):
+        if path == 'spans':
+            prod.append(('write', kt))       # the A tile
+            if kt + 1 < steps:
+                if kt + 1 >= nbuf:
+                    prod.append(('wait_free', kt + 1))
+                prod.append(('write', kt + 1))
+        else:
+            if kt >= nbuf:
+                prod.append(('wait_free', kt))
+            prod.append(('write', kt))
+        prod.append(('publish', kt))
+    cons = []
+
+    def release(stage):
+        if stage + nbuf < steps:
+            cons.append(('release', stage))
+
+    for k0 in range(0, steps, chain):
+        n = min(chain, steps - k0)
+        for kt in range(k0, k0 + n):
+            cons += [('wait_full', kt), ('issue', kt), ('wait_pending', 1)]
+            if early:
+                release(kt)
+            elif kt > k0:
+                release(kt - 1)
+        cons.append(('wait_pending', 0))
+        if not early:
+            release(k0 + n - 1)
+    cons.append(('epilogue', None))
+
+    fills, taken = [0] * nbuf, [0] * nbuf
+    frees, waited = [0] * nbuf, [0] * nbuf
+    pending, issued = [], []
+    pc = cc = 0
+
+    def enabled(op, arg):
+        b = arg % nbuf if isinstance(arg, int) else 0
+        if op == 'wait_free':
+            return frees[b] >= arg // nbuf
+        if op == 'wait_full':
+            return fills[b] >= arg // nbuf + 1
+        if op == 'wait_pending':
+            return len(pending) <= arg
+        return True
+
+    def run(op, arg):
+        b = arg % nbuf if isinstance(arg, int) else 0
+        if op == 'write':
+            old = arg - nbuf
+            assert old < 0 or old in issued, ('overwrites unread', arg)
+            assert old not in pending, ('refills a buffer still read', arg,
+                                        steps)
+        elif op == 'wait_free':
+            waited[b] += 1
+        elif op == 'publish':
+            fills[b] += 1
+            assert fills[b] - taken[b] <= 1, ('two fills ahead', arg)
+        elif op == 'wait_full':
+            taken[b] += 1
+        elif op == 'issue':
+            pending.append(arg)
+            issued.append(arg)
+        elif op == 'release':
+            frees[b] += 1
+            assert frees[b] - waited[b] <= 1, ('two frees ahead', arg)
+        elif op == 'epilogue':
+            assert pc == len(prod), 'the tile overwrites a stage in flight'
+
+    while pc < len(prod) or cc < len(cons):
+        moves = []
+        if pc < len(prod) and enabled(*prod[pc]):
+            moves.append('p')
+        if cc < len(cons) and enabled(*cons[cc]):
+            moves.append('c')
+        if pending:
+            moves.append('done')
+        assert moves, ('deadlock', path, steps, prod[pc:pc + 1],
+                       cons[cc:cc + 1])
+        if policy == 'producers':        # completions as late as possible
+            move = next(m for m in ('p', 'c', 'done') if m in moves)
+        elif policy == 'consumers':
+            move = next(m for m in ('c', 'done', 'p') if m in moves)
+        else:
+            move = moves[rng.integers(len(moves))]
+        if move == 'p':
+            run(*prod[pc])
+            pc += 1
+        elif move == 'c':
+            run(*cons[cc])
+            cc += 1
+        else:
+            pending.pop(0)
+    assert issued == list(range(steps)) and not pending
+    assert fills == taken and frees == waited
+
+
+@pytest.mark.parametrize('instance,path', [('Bf16', 'spans'),
+                                           ('Bf16', 'ring'),
+                                           ('Tf32x3', 'ring')],
+                         ids=['bf16_conv', 'bf16_wgrad', 'fp32'])
+def test_buffer_handoff_with_stages_in_flight(instance, path):
+    """Every loop length from 1 to 72 stages (the recipe's 280-channel
+    conv GEMMs take 35 bf16 stages, 70 fp32 ones), under the schedule that
+    completes products as late as it can, the one that runs the consumers
+    first, and random ones.  The bf16 conv GEMMs take the span producers,
+    the bf16 wgrads and every fp32 GEMM wait for a buffer at its stage."""
+    nbuf, chain = _instance(instance, 'NBUF'), _instance(instance, 'CHAIN')
+    rng = np.random.default_rng(len(path))
+    for steps in range(1, 73):
+        for policy in ('producers', 'consumers', 'random', 'random'):
+            _handoff(path, steps, nbuf, chain, policy, rng)
+
+
+def test_buffer_handoff_model_finds_an_early_release():
+    """Freeing the buffer of the stage just committed while its products
+    are in flight is caught: the producers refill a buffer still read."""
+    rng = np.random.default_rng(0)
+    with pytest.raises(AssertionError, match='refills a buffer still read'):
+        for steps in range(1, 73):
+            _handoff('spans', steps, NBUF, _instance('Bf16', 'CHAIN'),
+                     'producers', rng, early=True)
