@@ -30,8 +30,8 @@ import os
 import numpy as np
 import torch
 
+from . import nets, synth
 from . import reference as R
-from . import synth
 
 # leaves whose reference gradient is under this share of the median leaf's
 # are left out of the gradient and the change (Adam moves them by
@@ -52,10 +52,11 @@ def train_reference_run(config: dict, sd0: dict, scenes, batches,
     the configuration's precision unless ``prec`` names another."""
     pc = config['port_config']
     prec = prec or config['reference']
+    net = nets.load(config)
     ref_scenes = R.TrainScenes(scenes, float(pc['train_shift']),
-                               bool(pc.get('cache_bf16')))
-    out = R.train_reference(pc, pc, sd0, ref_scenes, batches, device, prec,
-                            fault)
+                               bool(pc.get('cache_bf16')), net.USES_MPI)
+    out = R.train_reference(net, pc, pc, sd0, ref_scenes, batches, device,
+                            prec, fault)
     out['state'] = {**out['params'], **out['buffers']}
     return out
 
@@ -140,14 +141,15 @@ def shifted_stacks(views: dict, shift: float):
 
 
 @torch.no_grad()
-def calibrate_bn(model: dict, sd: dict, stacks, device) -> None:
-    """Give ``sd`` the running statistics of one train-mode forward of
-    ``stacks`` (in place), so an eval checkpoint's activations neither
-    vanish nor explode through the blocks."""
+def calibrate_bn(config: dict, sd: dict, stacks, device) -> None:
+    """Give ``sd`` the running statistics of one train-mode forward of the
+    configuration's net on ``stacks`` (in place), so an eval checkpoint's
+    activations neither vanish nor explode through the blocks."""
     R.no_tf32()
     params, buffers = R.split_state(sd, device)
-    net = R.Net(model, params, buffers, momentum=1.0)
-    net(*(R.fold(s)[None] for s in stacks), train=True, update=True)
+    nets.load(config).forward(config['port_config'], params, buffers,
+                              [R.fold(s)[None] for s in stacks], train=True,
+                              update=True, momentum=1.0)
     for k, v in buffers.items():
         sd[k].copy_(v)
 
@@ -165,8 +167,8 @@ def ese_reference_run(config: dict, sd: dict, stacks, gt, mpi,
     grid = R.ensemble_grid(lo, hi, float(traffic['disp_step']))
     if fault == 'half':
         grid = grid[::2]
-    means, logvars = R.ese_members(config['port_config'], sd, stacks, grid,
-                                   device, prec, fault)
+    means, logvars = R.ese_members(nets.load(config), config['port_config'],
+                                   sd, stacks, grid, device, prec, fault)
     mpi = mpi.clone()
     mpi[..., 4] -= shift
     best_lv, best = torch.min(logvars, 0)

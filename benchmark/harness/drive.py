@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from . import check, synth, weights
+from . import check, nets, synth, weights
 from .trace import WINDOW, Spans, Trace, start_profiler, stop_profiler
 
 
@@ -42,6 +42,7 @@ class Run:
         self.cell, self.config, self.traffic = cell, config, traffic
         self.seed, self.seconds, self.traced = seed, seconds, traced
         self.device = torch.device(device)
+        self.net = nets.load(config)
         self.spans = Spans(traced)
         self.trace = None
         self.units = 0            # steps or scenes in the window
@@ -95,9 +96,11 @@ class InMemoryScenes:
         self.data = data
 
 
-def train_scenes(traffic: dict, seed: int, dev):
-    """The training set: ``(tuples for the port, (stacks, gt, mask) on
-    the device for the reference)``."""
+def train_scenes(traffic: dict, seed: int, dev, with_mpi: bool):
+    """The training set: ``(tuples for the port, (stacks, gt, mpi, mask)
+    on the device for the reference)``; the reference's MPI is None unless
+    ``with_mpi`` (a net whose loss reads it), so that no other cell holds
+    it on the device."""
     made = synth.generate(_rng(seed, 1), traffic['scenes'],
                           traffic['scene_size'], dev,
                           traffic['disp_range'], traffic['disp_center'],
@@ -111,7 +114,7 @@ def train_scenes(traffic: dict, seed: int, dev):
         tuples.append(tuple(s.cpu().numpy() for s in stacks) + (
             center.cpu().numpy(), gt.cpu().numpy(), mpi.cpu().numpy(),
             mask.cpu().numpy(), np.atleast_1d(j)))
-        ref.append((stacks, gt, mask))
+        ref.append((stacks, gt, mpi if with_mpi else None, mask))
     return tuples, ref
 
 
@@ -125,10 +128,11 @@ def run_train(run: Run):
     dev, traffic = resolve_device(run.device), run.traffic
     cfg = port_config(run.config)
     with run.spans('setup.scenes'):
-        tuples, ref_scenes = train_scenes(traffic, run.seed, dev)
+        tuples, ref_scenes = train_scenes(traffic, run.seed, dev,
+                                          run.net.USES_MPI)
     with run.spans('setup.model'):
-        sd0 = weights.make_state_dict(run.config['port_config'], run.seed,
-                                      dev)
+        sd0 = weights.make_state_dict(run.net, run.config['port_config'],
+                                      run.seed, dev)
         model = build_model(cfg)
         model.load_state_dict(sd0, strict=True)
         model.to(dev)
@@ -292,6 +296,12 @@ def run_ese(run: Run):
     from mmlf_tpu_torch.utils.convert import save_checkpoint_pt
     from mmlf_tpu_torch.validate import cli as V
 
+    if not run.net.ESE:
+        raise ValueError(
+            f'{run.cell["name"]}: the ese traffic validates with the shift '
+            f'ensemble, which selects members by their mean and logvar; net '
+            f'{run.config.get("net", nets.DEFAULT)!r} gives no such outputs '
+            f'(ESE false in its module)')
     dev, traffic = run.device, run.traffic
     cfg = port_config(run.config)
     n, size = traffic['scenes'], traffic['scene_size']
@@ -318,10 +328,10 @@ def run_ese(run: Run):
                    os.path.join(warm, 'scene_00'))
         scenes_span.__exit__(None, None, None)
         shift = float(traffic['train_shift'])
-        sd = weights.make_state_dict(run.config['port_config'], run.seed,
-                                     dev)
+        sd = weights.make_state_dict(run.net, run.config['port_config'],
+                                     run.seed, dev)
         # the running statistics from the warm scene (scene 0)
-        check.calibrate_bn(run.config['port_config'], sd,
+        check.calibrate_bn(run.config, sd,
                            check.shifted_stacks(made[0][0], shift), dev)
         save_checkpoint_pt(os.path.join(out, 'checkpoint.pt'),
                            {k: v.cpu() for k, v in sd.items()}, cfg)

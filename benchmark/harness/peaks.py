@@ -1,10 +1,10 @@
 """Peaks of one NVIDIA H100 SXM and the counts of operations and bytes of
-the port's kernels and of the UPR network.
+the port's kernels; a net's own counts are in its module under ``nets/``.
 
 Frozen copy of ``chip_smoke.py``'s ``PEAK_*`` constants,
-``conv_flop_per_pixel``, ``window_gather_bound``, ``posterior_bound`` and
-``k3_bound``; ``window_gather_bound`` writes out K1's ``AUX_CH`` and
-``MPI_CH`` (``ops/kernels/window_gather.py``) instead of importing them.
+``window_gather_bound``, ``posterior_bound`` and ``k3_bound``;
+``window_gather_bound`` writes out K1's ``AUX_CH`` and ``MPI_CH``
+(``ops/kernels/window_gather.py``) instead of importing them.
 """
 
 # NVIDIA's data sheet, SXM part, dense rates: HBM bytes/s, fp32 FLOP/s
@@ -21,18 +21,6 @@ PEAK_3XTF32 = PEAK_TF32 / 3
 # words (12 planes x 5, padded)
 AUX_CH = 8
 MPI_CH = 64
-
-
-def conv_flop_per_pixel(chs: int = 70, views: int = 9, in_blocks: int = 3,
-                        out_blocks: int = 8) -> int:
-    """Forward FLOP per output pixel of the four-stream net with k=2
-    convs: 4 streams of one (3·views)→chs and 2·in_blocks − 1 chs→chs
-    convs, then out_blocks − 1 out_net blocks of two 4·chs→4·chs convs
-    (the 4·chs→2 head is left out).  9,625,280 at the published widths."""
-    cat = 4 * chs
-    return 4 * (2 * 4 * 3 * views * chs
-                + (2 * in_blocks - 1) * 2 * 4 * chs * chs) + \
-        (out_blocks - 1) * 2 * 2 * 4 * cat * cat
 
 
 def window_gather_bound(b: int, win: int, ci: int, with_mpi: bool,
@@ -83,23 +71,14 @@ def k3_bound(b, h, w, cin, cout, peak=PEAK_3XTF32, eb=4):
     return bound(ops_f, by_f), bound(ops_b, by_b)
 
 
-def trunk_blocks(chs: int = 70, views: int = 9, in_blocks: int = 3,
-                 out_blocks: int = 8):
-    """``[((cin, cout), count)]`` of the k=2 conv blocks of one forward:
-    the four streams' blocks and the out_net's (the last one to 2
-    channels)."""
-    cat = 4 * chs
-    return [((3 * views, chs), 4), ((chs, chs), 4 * (in_blocks - 1)),
-            ((cat, cat), out_blocks - 1), ((cat, 2), 1)]
-
-
-def k3_step_bound_ms(b: int, ps: int, accum: int, peak: float, eb: int,
-                     **widths) -> float:
+def k3_step_bound_ms(blocks, b: int, ps: int, accum: int, peak: float,
+                     eb: int) -> float:
     """Least time of K3 over one train step: forward and backward of every
-    block of ``trunk_blocks`` at microbatch ``b`` and ``ps``², times
-    ``accum`` microbatches."""
+    block of ``blocks`` (``[((cin, cout), count)]``, a net's
+    ``k3_blocks``) at microbatch ``b`` and ``ps``², times ``accum``
+    microbatches."""
     total = 0.0
-    for (cin, cout), n in trunk_blocks(**widths):
+    for (cin, cout), n in blocks:
         (fwd, _), (bwd, _) = k3_bound(b, ps, ps, cin, cout, peak, eb)
         total += n * (fwd + bwd)
     return total * accum

@@ -1,7 +1,10 @@
-"""Plain PyTorch reference of what the cells time: the UPR network's train
-step (input path, forward, loss, backward, Adam, BatchNorm statistics) and
-its shift-ensemble validation (members, selection, mixture posterior,
-metrics).
+"""Plain PyTorch reference of what the cells time: a net's train step
+(input path, forward, loss, backward, Adam, BatchNorm statistics) and the
+shift-ensemble validation (members, selection, mixture posterior,
+metrics).  What a configuration's net adds (its leaves, its head and its
+loss) comes from its module under ``nets/`` (``nets.py``); the four k=2
+streams and the out_net of conv blocks that the paper's heads share are
+here, as ``Net``.
 
 Written from the paper's method and the reference code's conventions, and
 imports nothing of the program: it takes the benchmark's scenes and
@@ -89,15 +92,33 @@ def no_tf32():
 
 # ------------------------------------------------------------------ network
 
+def conv_blocks(model: dict, out_chs: int):
+    """``(prefix, cin, cout, with_bn)`` of every conv block of ``Net``
+    with ``out_chs`` output channels, in the order of its state dict."""
+    if model.get('model_ksize', 2) != 2:
+        raise ValueError('the benchmark draws k=2 nets only')
+    chs, views = model['model_chs'], model['model_views']
+    out = []
+    for net in ('in_net_hv', 'in_net_id'):
+        for b in range(model['model_in_blocks']):
+            out.append((f'{net}.{b}', 3 * views if b == 0 else chs, chs,
+                        True))
+    cat, n = 4 * chs, model['model_out_blocks']
+    for b in range(n - 1):
+        out.append((f'out_net.{b}', cat, cat, True))
+    out.append((f'out_net.{n - 1}', cat, out_chs, False))
+    return out
+
+
 class Net:
-    """The UPR network as functions of a state dict: four k=2 streams (a
-    shared net for the horizontal and vertical stacks, one for the two
-    diagonals, each of ``in_blocks`` blocks), the ``out_blocks``-block
-    out_net on their concatenation, output channels (mean, logvar).  A
-    block is conv(pad 1) → ReLU → conv(pad 0) → BatchNorm → ReLU; the last
-    out_net block ends after its second conv.  The horizontal stream runs
-    on the transposed stack, the increasing diagonal on the transposed and
-    mirrored one."""
+    """The paper's four-stream network as functions of a state dict: four
+    k=2 streams (a shared net for the horizontal and vertical stacks, one
+    for the two diagonals, each of ``in_blocks`` blocks), then the
+    ``out_blocks``-block out_net on their concatenation, whose last block
+    gives the head's channels (``conv_blocks``).  A block is conv(pad 1) →
+    ReLU → conv(pad 0) → BatchNorm → ReLU; the last out_net block ends
+    after its second conv.  The horizontal stream runs on the transposed
+    stack, the increasing diagonal on the transposed and mirrored one."""
 
     def __init__(self, model: dict, params: dict, buffers: dict,
                  prec: str = 'fp32', momentum: float = BN_MOMENTUM):
@@ -143,9 +164,10 @@ class Net:
             x = self._block(f'{name}.{b}', x, True, train, update)
         return x
 
-    def __call__(self, h, v, i, d, train: bool, update: bool = False):
-        """Folded NCHW stacks ``(B, 3·views, H, W)`` → ``(mean, logvar)``
-        ``(B, H, W)`` each."""
+    def streams(self, h, v, i, d, train: bool, update: bool = False):
+        """Folded NCHW stacks ``(B, 3·views, H, W)`` → the four streams'
+        features, concatenated ``(B, 4·chs, H, W)``: what an out_net
+        reads."""
         h, v, i, d = (self.store(x) for x in (h, v, i, d))
         f_h = self._net('in_net_hv', h.transpose(2, 3), train,
                         update).transpose(2, 3)
@@ -153,11 +175,16 @@ class Net:
         f_i = self._net('in_net_id', i.transpose(2, 3).flip(-1), train,
                         update).flip(-1).transpose(2, 3)
         f_d = self._net('in_net_id', d, train, update)
-        x = torch.cat([f_h, f_v, f_i, f_d], 1)
+        return torch.cat([f_h, f_v, f_i, f_d], 1)
+
+    def __call__(self, h, v, i, d, train: bool, update: bool = False):
+        """Folded NCHW stacks ``(B, 3·views, H, W)`` → the out_net's output
+        ``(B, out_chs, H, W)``."""
+        x = self.streams(h, v, i, d, train, update)
         for b in range(self.out_blocks):
             x = self._block(f'out_net.{b}', x, b < self.out_blocks - 1,
                             train, update)
-        return x[:, 0], x[:, 1]
+        return x
 
 
 def split_state(sd: dict, device):
@@ -228,30 +255,42 @@ def _rot(a: torch.Tensor) -> torch.Tensor:
 
 class TrainScenes:
     """The train scenes as the train step sees them: each stack statically
-    shifted by ``train_shift``, gt and the MPI's disparities corrected."""
+    shifted by ``train_shift``, gt and the MPI's disparities corrected.
+    ``scenes`` holds ``(stacks, gt, mpi, mask)``; the MPI ``(K, H, W, 5)``
+    is kept only where ``with_mpi`` (a net whose loss reads it)."""
 
-    def __init__(self, scenes, train_shift: float, bf16: bool = False):
+    def __init__(self, scenes, train_shift: float, bf16: bool = False,
+                 with_mpi: bool = False):
         self.scenes = []
-        for stacks, gt, mask in scenes:
+        for stacks, gt, mpi, mask in scenes:
             stacks = shift_stacks(*stacks, train_shift) if train_shift else \
                 stacks
             if bf16:     # a bfloat16 image cache
                 stacks = [_bf16(s) for s in stacks]
-            self.scenes.append((stacks, gt - np.float32(train_shift), mask))
+            if with_mpi:
+                mpi = mpi.clone()
+                mpi[..., 4] -= np.float32(train_shift)
+            self.scenes.append((stacks, gt - np.float32(train_shift),
+                                mpi if with_mpi else None, mask))
 
 
 def sample_inputs(scenes: TrainScenes, batch, b: int, ps: int, win: int):
     """Sample ``b`` of a drawn batch: its window at the drawn level and
     position, the sub-pixel shift within the window, the crop, the
     rotations, the colour mix, brightness and contrast.  Returns the four
-    folded stacks ``(3·views, ps, ps)``, gt and the mask (not rotated)."""
-    stacks, gt, mask = scenes.scenes[int(batch.scene[b])]
+    folded stacks ``(3·views, ps, ps)``, gt, the MPI ``(K, ps, ps, 5)``
+    (or None where the scenes keep none; its disparities follow gt's) and
+    the mask (not rotated)."""
+    stacks, gt, mpi, mask = scenes.scenes[int(batch.scene[b])]
     f = int(batch.factor[b])
     y, x = int(batch.ws_y[b]), int(batch.ws_x[b])
     ys, xs = slice(y, y + win), slice(x, x + win)
     win_stacks = [s[:, ::f, ::f][:, ys, xs] for s in stacks]
     g = (gt[::f, ::f] / np.float32(f))[ys, xs]
     m = mask[::f, ::f][ys, xs]
+    if mpi is not None:
+        mpi = mpi[:, ::f, ::f][:, ys, xs].clone()
+        mpi[..., 4] /= np.float32(f)
     if win_stacks[0].shape[1:3] != (win, win):
         raise ValueError(f'sample {b}: window {win} at ({y}, {x}) leaves '
                          f'the level')
@@ -259,42 +298,42 @@ def sample_inputs(scenes: TrainScenes, batch, b: int, ps: int, win: int):
     shift = float(aug.shift[b])
     h, v, i, d = shift_stacks(*win_stacks, shift)
     g = g - shift
+    if mpi is not None:
+        mpi[..., 4] -= np.float32(shift)
     y0, x0 = int(aug.y_off[b]) + GUARD_BAND, int(aug.x_off[b]) + GUARD_BAND
     crop = (slice(y0, y0 + ps), slice(x0, x0 + ps))
     h, v, i, d = (s[:, crop[0], crop[1]] for s in (h, v, i, d))
     g, m = g[crop], m[crop]
+    if mpi is not None:
+        mpi = mpi[:, crop[0], crop[1]]
     for _ in range(int(aug.rot_k[b])):
         h, v, i, d = _rot(h), _rot(v), _rot(i), _rot(d)
         h, v = v, torch.flip(h, (0,))
         i, d = d, torch.flip(i, (0,))
         g = _rot(g[..., None])[..., 0]
+        if mpi is not None:
+            mpi = _rot(mpi)
     color = torch.as_tensor(np.asarray(aug.color[b]), device=h.device)
     h, v, i, d = (s @ color.T * float(aug.brightness[b])
                   for s in (h, v, i, d))
     c = float(aug.contrast[b])
     pivot = torch.mean(h) * (1.0 - c)
     h, v, i, d = (s * c + pivot for s in (h, v, i, d))
-    return [fold(s) for s in (h, v, i, d)], g, m
+    return [fold(s) for s in (h, v, i, d)], g, mpi, m
 
 
 def microbatch(scenes, batch, lo: int, hi: int, ps: int, win: int):
-    """Samples ``[lo, hi)``: stacked model inputs, gt and the loss mask
-    (the augmented mask times the train margin)."""
+    """Samples ``[lo, hi)``: stacked model inputs, gt, the MPI ``(b, K,
+    ps, ps, 5)`` (or None) and the loss mask (the augmented mask times
+    the train margin)."""
     rows = [sample_inputs(scenes, batch, b, ps, win) for b in range(lo, hi)]
     stacks = [torch.stack([r[0][k] for r in rows]) for k in range(4)]
     gt = torch.stack([r[1] for r in rows])
-    mask = torch.stack([r[2] for r in rows]).float()
+    mpi = None if rows[0][2] is None else torch.stack([r[2] for r in rows])
+    mask = torch.stack([r[3] for r in rows]).float()
     margin = torch.zeros_like(mask[0])
     margin[LOSS_MARGIN:ps - LOSS_MARGIN, LOSS_MARGIN:ps - LOSS_MARGIN] = 1.0
-    return stacks, gt, mask * margin
-
-
-def upr_loss(mean, logvar, gt, mask):
-    """Heteroscedastic L1, ``exp(-logvar)·|mean - gt| + logvar``, averaged
-    over the mask."""
-    loss = torch.exp(-logvar) * torch.abs(mean - gt) + logvar
-    count = mask.sum()
-    return (loss * mask).sum() / torch.clamp(count, min=1.0)
+    return stacks, gt, mpi, mask * margin
 
 
 def lr_at(lr: float, step: int, warm_start: bool) -> float:
@@ -305,10 +344,11 @@ def lr_at(lr: float, step: int, warm_start: bool) -> float:
     return float(np.float32(lr))
 
 
-def train_reference(model: dict, recipe: dict, sd: dict, scenes, batches,
-                    device, prec: str = 'fp32', fault: str = ''):
-    """Follow the program's first ``len(batches)`` train steps from the
-    initial state dict ``sd`` on the same drawn batches.
+def train_reference(net, model: dict, recipe: dict, sd: dict, scenes,
+                    batches, device, prec: str = 'fp32', fault: str = ''):
+    """Follow the program's first ``len(batches)`` train steps of ``net``
+    (a module of ``nets/``) from the initial state dict ``sd`` on the same
+    drawn batches.
 
     Each step splits the batch into ``train_accum`` microbatches, averages
     their losses and gradients, keeps the BatchNorm running statistics of
@@ -319,7 +359,6 @@ def train_reference(model: dict, recipe: dict, sd: dict, scenes, batches,
     """
     no_tf32()
     params, buffers = split_state(sd, device)
-    net = Net(model, params, buffers, prec)
     m = {k: torch.zeros_like(p) for k, p in params.items()}
     v = {k: torch.zeros_like(p) for k, p in params.items()}
     accum, ps = int(recipe['train_accum']), int(recipe['train_ps'])
@@ -332,15 +371,16 @@ def train_reference(model: dict, recipe: dict, sd: dict, scenes, batches,
         total = 0.0
         for c in range(accum):
             hi = c * size + (size // 2 if fault == 'half' else size)
-            stacks, gt, mask = microbatch(scenes, batch, c * size, hi, ps,
-                                          win)
-            mean, logvar = net(*stacks, train=True, update=c == 0)
-            loss = upr_loss(mean, logvar, gt, mask) / accum
+            stacks, gt, mpi, mask = microbatch(scenes, batch, c * size, hi,
+                                               ps, win)
+            out = net.forward(model, params, buffers, stacks, train=True,
+                              update=c == 0, prec=prec)
+            loss = net.loss(out, gt, mpi, mask) / accum
             for k, g in zip(params, torch.autograd.grad(
                     loss, list(params.values()))):
                 grads[k] += g
             total += float(loss.detach())
-            del stacks, mean, logvar, loss
+            del stacks, mpi, out, loss
         losses.append(total)
         if first_grads is None:
             first_grads = {k: g.clone() for k, g in grads.items()}
@@ -378,21 +418,23 @@ def bin_grid(lo: float, hi: float, n: int, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def ese_members(model: dict, sd: dict, stacks, grid, device,
+def ese_members(net, model: dict, sd: dict, stacks, grid, device,
                 prec: str = 'fp32', fault: str = ''):
     """Every member's mean (shift added back) and logvar of one scene's
-    ``(n, H, W, 3)`` stacks: the eval forward (running statistics) of the
-    stacks EPI-shifted by the member's disparity.  ``(K, H, W)`` each.
-    ``fault='member'`` adds 0.5 to the last member's mean."""
+    ``(n, H, W, 3)`` stacks: the eval forward of ``net`` (running
+    statistics) of the stacks EPI-shifted by the member's disparity.
+    ``(K, H, W)`` each.  ``fault='member'`` adds 0.5 to the last member's
+    mean."""
     no_tf32()
     params, buffers = split_state(sd, device)
-    net = Net(model, params, buffers, prec)
     means, logvars = [], []
     for s in grid:
         shifted = shift_stacks(*stacks, float(s))
-        mean, logvar = net(*(fold(x)[None] for x in shifted), train=False)
-        means.append(mean[0] + float(s))
-        logvars.append(logvar[0])
+        out = net.forward(model, params, buffers,
+                          [fold(x)[None] for x in shifted], train=False,
+                          prec=prec)
+        means.append(out['mean'][0] + float(s))
+        logvars.append(out['logvar'][0])
     means, logvars = torch.stack(means), torch.stack(logvars)
     if fault == 'member':
         means[-1] += 0.5

@@ -1,9 +1,7 @@
 """Share of the configuration's peak of the ESE validation: the frozen
-forward count of every member run (a whole scene each) over the host
-clock's seconds of the traced window (its ``bench.window`` range), idle
-time included."""
-
-from harness import peaks
+forward count (the net's ``flop_per_pixel``) of every member run (a
+whole scene each) over the host clock's seconds of the traced window (its
+``bench.window`` range), idle time included."""
 
 
 def read(run):
@@ -11,8 +9,6 @@ def read(run):
         return None
     pc = run.config['port_config']
     size = run.traffic['scene_size']
-    flop = peaks.conv_flop_per_pixel(
-        pc['model_chs'], pc['model_views'], pc['model_in_blocks'],
-        pc['model_out_blocks']) * size * size
+    flop = run.net.flop_per_pixel(pc) * size * size
     return 100.0 * flop * run.members / run.trace.window_s / \
         run.config['peak_flops']

@@ -5,11 +5,12 @@
 It needs CUDA with as many cards as the cell asks for, and exits non-zero
 without printing a result otherwise.  The cell names a configuration
 (``configs/<name>.json``) and a traffic mix (``traffic/<name>.json``)
-listed in ``BENCHMARK.json``; the per-layer metrics are read by
-``metrics/<stem>.py`` (see ``stem``); the limits of ``correct`` are in
-``limits/<cell>.json``.  The last line of standard output is the result
-as one JSON object; the last lines of standard error give each compared
-number beside its limit.
+listed in ``BENCHMARK.json``; the configuration names its net
+(``nets/<name>.py``, see ``harness/nets.py``); the per-layer metrics are
+read by ``metrics/<stem>.py`` (see ``stem``); the limits of ``correct``
+are in ``limits/<cell>.json``.  The last line of standard output is the
+result as one JSON object; the last lines of standard error give each
+compared number beside its limit.
 """
 
 import time

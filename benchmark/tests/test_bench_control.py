@@ -11,7 +11,8 @@ import calibrate
 import run
 from harness import check, drive
 
-CELLS = ['upr_bf16_trunk.train', 'upr_fp32.ese', 'upr_fp32.train']
+CELLS = ['upr_bf16_trunk.train', 'upr_fp32.ese', 'upr_fp32.train',
+         'upr_fp32_trunk.train']
 
 
 def judged(name, values) -> bool:

@@ -13,7 +13,8 @@ import pytest
 import run
 from harness import check, drive
 
-CELLS = ['upr_bf16_trunk.train', 'upr_fp32.ese', 'upr_fp32.train']
+CELLS = ['upr_bf16_trunk.train', 'upr_fp32.ese', 'upr_fp32.train',
+         'upr_fp32_trunk.train']
 
 
 def run_tiny(tiny, name, traced=False, seed=2**31 + 7, patch=None):

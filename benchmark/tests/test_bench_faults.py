@@ -10,7 +10,11 @@ import torch
 
 from test_bench_cpu_run import run_tiny
 
-TRAIN = ['upr_bf16_trunk.train', 'upr_fp32.train']
+TRAIN = ['upr_bf16_trunk.train', 'upr_fp32.train', 'upr_fp32_trunk.train']
+# the cells whose bn_stats_gap limit, at CPU size, lets pass the running
+# statistics of a step that keeps only its parameters (the fp32 K3 cell's
+# limit, 5.41e-6, also catches them: 5.6e-6)
+BN_PASSES_KEPT_PARAMETERS = {'upr_bf16_trunk.train', 'upr_fp32.train'}
 
 
 @pytest.mark.parametrize('kept, reads_1', [('state', 'bn_stats_gap'),
@@ -19,7 +23,7 @@ TRAIN = ['upr_bf16_trunk.train', 'upr_fp32.train']
 def test_step_that_keeps_its_state(tiny, name, kept, reads_1, monkeypatch):
     """The step leaves its whole state as it was, or only its parameters:
     then Adam's moments and the running statistics still move, and the
-    update never reaches the parameters."""
+    update never reaches the parameters: ``change_gap`` catches it."""
     from mmlf_tpu_torch.train import loop
     step = loop.train_step
 
@@ -38,7 +42,8 @@ def test_step_that_keeps_its_state(tiny, name, kept, reads_1, monkeypatch):
     assert res['checks'][reads_1]['value'] == pytest.approx(1.0)
     if kept == 'parameters':
         bn = res['checks']['bn_stats_gap']
-        assert bn['value'] <= bn['limit']
+        assert (bn['value'] <= bn['limit']) is \
+            (name in BN_PASSES_KEPT_PARAMETERS)
 
 
 @pytest.mark.parametrize('name', TRAIN)

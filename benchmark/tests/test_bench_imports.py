@@ -25,8 +25,8 @@ def loaded(body: str) -> set:
 
 
 def test_reference_loads_nothing_of_jax_or_the_port():
-    top = loaded('from harness import check, reference, synth, weights, '
-                 'peaks, trace')
+    top = loaded('from harness import check, nets, reference, synth, '
+                 'weights, peaks, trace; nets.load({})')
     assert not top & {'jax', 'jaxlib', 'flax', 'mmlf_tpu',
                       'mmlf_tpu_torch'}
 
