@@ -65,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.batchnorm import BatchNorm2d, recomputing
 from ..ops.codecs import bin_centers, class_to_reg
+from ..trace import span
 from .invertible import NOT_SUPPORTED_MSG
 from .pallas_trunk import trunk_forward
 from .unet import UNet
@@ -194,32 +195,35 @@ class FeedForward(nn.Module):
                 not self.unet:
             stacks = [fold(s) for s in (h_views, v_views)] + (
                 [] if self.cross else [fold(i_views), fold(d_views)])
-            output = trunk_forward(self, *stacks).float()
+            output = trunk_forward(self, *stacks)
         else:
             output = self._plain_trunk(fold, h_views, v_views, i_views,
-                                       d_views).float()
-        mean = output[:, 0]
+                                       d_views)
+        with span('mmlf.model.head'):
+            output = output.float()
+            mean = output[:, 0]
 
-        scores = one_hot = posterior = logvar = None
-        bins = bin_centers(self.disp_min, self.disp_max, self.steps,
-                           output.device)
+            scores = one_hot = posterior = logvar = None
+            bins = bin_centers(self.disp_min, self.disp_max, self.steps,
+                               output.device)
 
-        if self.discrete:
-            scores = output.permute(0, 2, 3, 1)                # (b, H, W, S)
-            one_hot = (torch.amax(scores, dim=-1, keepdim=True)
-                       == scores).float()
-            posterior = torch.exp(scores)
-            posterior = posterior / torch.sum(posterior, -1, keepdim=True)
-            mean = class_to_reg(one_hot, self.disp_min, self.disp_max,
-                                self.steps)
-            var = torch.sum((bins - mean[..., None]) ** 2.0 * posterior,
-                            dim=-1)
-            logvar = torch.log(var)
+            if self.discrete:
+                scores = output.permute(0, 2, 3, 1)            # (b, H, W, S)
+                one_hot = (torch.amax(scores, dim=-1, keepdim=True)
+                           == scores).float()
+                posterior = torch.exp(scores)
+                posterior = posterior / torch.sum(posterior, -1,
+                                                  keepdim=True)
+                mean = class_to_reg(one_hot, self.disp_min, self.disp_max,
+                                    self.steps)
+                var = torch.sum((bins - mean[..., None]) ** 2.0 * posterior,
+                                dim=-1)
+                logvar = torch.log(var)
 
-        if self.uncert:
-            logvar = output[:, 1]
-            # reference quirk: exp(logvar) is the Laplace *scale*, not var
-            posterior = laplacian(bins, mean, torch.exp(logvar))
+            if self.uncert:
+                logvar = output[:, 1]
+                # reference quirk: exp(logvar) is the Laplace *scale*, not var
+                posterior = laplacian(bins, mean, torch.exp(logvar))
 
         return {'mean': mean, 'logvar': logvar, 'scores': scores,
                 'one_hot': one_hot, 'posterior': posterior}

@@ -275,10 +275,12 @@ def microbatch_loss(cfg: Config, model: torch.nn.Module,
                           if output.get(k) is not None}
             gt, mask = mesh.all_gather(gt), mesh.all_gather(mask)
             mpi = None if mpi is None else mesh.all_gather(mpi)
-        gt, mpi, gt_classes, mask, mask_padding = prepare_targets(
-            cfg, gt, mpi, mask)
-        loss = compute_loss(cfg, output, gt, mpi, gt_classes, mask,
-                            mask_padding, step=step)
+        with span('mmlf.train.targets'):
+            gt, mpi, gt_classes, mask, mask_padding = prepare_targets(
+                cfg, gt, mpi, mask)
+        with span('mmlf.train.loss'):
+            loss = compute_loss(cfg, output, gt, mpi, gt_classes, mask,
+                                mask_padding, step=step)
         return loss, torch.sum(mask).float()
 
 

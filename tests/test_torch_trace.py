@@ -26,6 +26,7 @@ SMALL = dict(model_chs=4, model_in_blocks=1, model_out_blocks=1,
              model_uncert=True)
 # the names the benchmark's readers look up (benchmark/metrics/)
 NAMES = {'mmlf.train.step', 'mmlf.train.augment', 'mmlf.train.forward',
+         'mmlf.train.targets', 'mmlf.train.loss', 'mmlf.model.head',
          'mmlf.train.backward', 'mmlf.train.optimizer',
          'mmlf.pipeline.shift', 'mmlf.pipeline.pack', 'mmlf.data.load_scene',
          'mmlf.val.load', 'mmlf.val.members', 'mmlf.val.readback',
@@ -122,13 +123,22 @@ def test_train_step_spans(scene_dir, tmp_path):
                                               pipe.cache, batch, 0), tmp_path)
     count = {n: len(of(ranges, n)) for n in {r[0] for r in ranges}}
     assert count == {'mmlf.train.step': 1, 'mmlf.train.augment': 2,
-                     'mmlf.train.forward': 2, 'mmlf.train.backward': 2,
-                     'mmlf.train.optimizer': 1}
+                     'mmlf.train.forward': 2, 'mmlf.model.head': 2,
+                     'mmlf.train.targets': 2, 'mmlf.train.loss': 2,
+                     'mmlf.train.backward': 2, 'mmlf.train.optimizer': 1}
     step = of(ranges, 'mmlf.train.step')
     assert all(inside(r, step) for r in ranges)
-    # augment, forward and backward of each microbatch, then Adam
+    # the head, the targets and the loss inside each microbatch's forward
+    forward = of(ranges, 'mmlf.train.forward')
+    assert all(inside(r, forward) for name in ('mmlf.model.head',
+                                               'mmlf.train.targets',
+                                               'mmlf.train.loss')
+               for r in of(ranges, name))
+    # augment, forward (its head, targets and loss) and backward of each
+    # microbatch, then Adam
     order = [r[0].split('.')[-1] for r in ranges if r[0] != 'mmlf.train.step']
-    assert order == ['augment', 'forward', 'backward'] * 2 + ['optimizer']
+    assert order == ['augment', 'forward', 'head', 'targets', 'loss',
+                     'backward'] * 2 + ['optimizer']
 
 
 def test_validation_spans(scene_dir, tmp_path):
@@ -143,8 +153,12 @@ def test_validation_spans(scene_dir, tmp_path):
         device='cpu'), tmp_path)
     count = {n: len(of(ranges, n)) for n in {r[0] for r in ranges}}
     assert count == {'mmlf.val.load': 1, 'mmlf.data.load_scene': 2,
-                     'mmlf.val.members': 1, 'mmlf.val.readback': 1,
-                     'mmlf.val.calibration': 1, 'mmlf.val.save': 1}
+                     'mmlf.val.members': 1, 'mmlf.model.head': 14,
+                     'mmlf.val.readback': 1, 'mmlf.val.calibration': 1,
+                     'mmlf.val.save': 1}
+    # each of the 14 members' forwards ends in the head
+    assert all(inside(r, of(ranges, 'mmlf.val.members'))
+               for r in of(ranges, 'mmlf.model.head'))
     # the scene is decoded once to run it and once more to write its views
     first, second = of(ranges, 'mmlf.data.load_scene')
     assert inside(first, of(ranges, 'mmlf.val.load'))
