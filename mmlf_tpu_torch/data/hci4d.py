@@ -24,7 +24,6 @@ from ..ops.masks import create_mask_texture
 from ..trace import span
 from ..utils import pfm
 from ..utils.imgio import load_img, load_img_u8, save_img
-from ..utils.lf import save_views
 
 # filename substrings that disqualify an image from being a view
 _NON_VIEW_TOKENS = ('normals', 'mask', 'objectids', 'unused', 'edges',
@@ -203,7 +202,8 @@ class HCI4D:
         return data
 
     def save_batch(self, path: str, index, result=None, uncert=None,
-                   runtime=None, gmm=None, nll=None, posterior=None):
+                   runtime=None, gmm=None, nll=None, posterior=None,
+                   sample=None):
         """Write per-scene artifacts + the HCI-benchmark submission layout.
 
         Per scene ``scenes/<name>/{view_*.png, center.png, gt.png,
@@ -214,6 +214,14 @@ class HCI4D:
         ``result``/``uncert`` are ``(b, H, W)``; ``gmm`` is
         ``(2, K, b, H, W)``; ``nll``/``posterior`` are ``(b, S, H, W)``
         (bin-first, the reference's on-disk layout).  All numpy.
+        ``sample``, for a one-scene ``index``, is the 9-tuple ``self[i]``
+        gave the caller: its views, centre and gt are written as they are,
+        and the scene is not loaded again.
+
+        The files are encoded and written side by side on a pool of
+        threads (PIL's encoder and the writes release the GIL), the
+        largest first.  The call returns once every file is closed, and
+        raises the first error of any of them.
         """
         scenes_dir = os.path.join(path, 'scenes')
         disp_maps = os.path.join(path, 'ours', 'disp_maps')
@@ -222,51 +230,89 @@ class HCI4D:
             os.makedirs(d, exist_ok=True)
 
         index = np.asarray(index).reshape(-1)
+        if sample is not None and index.shape[0] != 1:
+            raise ValueError(f'a handed sample is one scene; the index '
+                             f'names {index.shape[0]}')
+        jobs = []    # (bytes in, writer, file, what it writes)
+
+        def write(fn, file, data):
+            jobs.append((getattr(data, 'nbytes', 0), fn, file, data))
+
         for arr_i, i in enumerate(index.tolist()):
             i = int(i)
             scene = self.scenes_names[i]
             scene_dir = os.path.join(scenes_dir, scene)
             os.makedirs(scene_dir, exist_ok=True)
 
-            h_views, v_views, i_views, d_views, center, gt, mpi, mask, _ = \
-                self[i]
+            h_views, v_views, i_views, d_views, center, gt = \
+                (self[i] if sample is None else sample)[:6]
 
-            save_views(scene_dir, h_views, v_views, i_views, d_views)
-            save_img(os.path.join(scene_dir, 'center.png'), center)
-            save_img(os.path.join(scene_dir, 'gt.png'), gt)
+            for tag, stack in zip('hvid', (h_views, v_views, i_views,
+                                           d_views)):
+                for j, view in enumerate(stack):
+                    write(save_img,
+                          os.path.join(scene_dir, f'view_{tag}_{j}.png'), view)
+            write(save_img, os.path.join(scene_dir, 'center.png'), center)
+            write(save_img, os.path.join(scene_dir, 'gt.png'), gt)
             if result is not None:
-                save_img(os.path.join(scene_dir, 'diff.png'),
-                         np.abs(gt - result[arr_i]))
+                write(save_img, os.path.join(scene_dir, 'diff.png'),
+                      np.abs(gt - result[arr_i]))
 
-            pfm.save(os.path.join(scene_dir, 'gt.pfm'),
-                     np.flip(gt, 0).copy())
+            write(pfm.save, os.path.join(scene_dir, 'gt.pfm'),
+                  np.flip(gt, 0).copy())
 
             if result is not None:
                 res = np.flip(result[arr_i].astype(np.float32), 0).copy()
-                pfm.save(os.path.join(scene_dir, 'result.pfm'), res)
-                pfm.save(os.path.join(disp_maps, f'{scene}.pfm'), res)
+                write(pfm.save, os.path.join(scene_dir, 'result.pfm'), res)
+                write(pfm.save, os.path.join(disp_maps, f'{scene}.pfm'), res)
 
                 lo, hi = float(np.min(gt)), float(np.max(gt))
                 img = (result[arr_i] - lo) / (hi - lo) if hi > lo \
                     else np.zeros_like(result[arr_i])
-                save_img(os.path.join(scene_dir, 'result.png'),
-                         np.clip(img, 0.0, 1.0))
+                write(save_img, os.path.join(scene_dir, 'result.png'),
+                      np.clip(img, 0.0, 1.0))
 
             if uncert is not None:
                 unc = np.flip(uncert[arr_i].astype(np.float32), 0).copy()
-                pfm.save(os.path.join(scene_dir, 'uncert.pfm'), unc)
-                save_img(os.path.join(scene_dir, 'uncert.png'),
-                         uncert[arr_i])
+                write(pfm.save, os.path.join(scene_dir, 'uncert.pfm'), unc)
+                write(save_img, os.path.join(scene_dir, 'uncert.png'),
+                      uncert[arr_i])
 
             if gmm is not None:
-                np.save(os.path.join(scene_dir, 'gmm.npy'), gmm[:, :, arr_i])
+                write(_save_npy, os.path.join(scene_dir, 'gmm.npy'),
+                      gmm[:, :, arr_i])
             if nll is not None:
-                np.save(os.path.join(scene_dir, 'nll.npy'), nll[arr_i])
+                write(_save_npy, os.path.join(scene_dir, 'nll.npy'),
+                      nll[arr_i])
             if posterior is not None:
-                np.save(os.path.join(scene_dir, 'posterior.npy'),
-                        posterior[arr_i])
+                write(_save_npy, os.path.join(scene_dir, 'posterior.npy'),
+                      posterior[arr_i])
 
             if runtime is not None:
                 per_item = float(runtime) / float(index.shape[0])
-                with open(os.path.join(runtimes, f'{scene}.txt'), 'w') as f:
-                    f.write(str(per_item))
+                write(_write_text, os.path.join(runtimes, f'{scene}.txt'),
+                      str(per_item))
+
+        jobs.sort(key=lambda job: -job[0])
+        workers = max(1, min(len(jobs), len(os.sched_getaffinity(0))))
+        # leaving the block joins every thread, whatever a job raised
+        with ThreadPoolExecutor(workers) as pool:
+            futures = [pool.submit(fn, file, data)
+                       for _, fn, file, data in jobs]
+        for future in futures:
+            future.result()
+
+
+def _save_npy(file: str, arr: np.ndarray) -> None:
+    """``np.save`` of a strided array from a C-contiguous copy: the same
+    bytes, without numpy's element-by-element path for a strided one (a
+    Fortran-ordered array is saved as it is, which is what ``np.save``
+    writes for it)."""
+    if not arr.flags.f_contiguous:
+        arr = np.ascontiguousarray(arr)
+    np.save(file, arr)
+
+
+def _write_text(file: str, text: str) -> None:
+    with open(file, 'w') as f:
+        f.write(text)

@@ -660,7 +660,8 @@ def _validate(cfg: Config, model: torch.nn.Module, valset: HCI4D, scene_eval,
         logvar = output.get('logvar')
         valset.save_batch(output_dir, np.asarray(sample[8])[None],
                           output['mean'].cpu().numpy(),
-                          None if logvar is None else logvar.cpu().numpy())
+                          None if logvar is None else logvar.cpu().numpy(),
+                          sample=sample)
     n = len(valset.scenes)
     return loss_val / n, mse / n, bad_pix / n
 

@@ -411,7 +411,8 @@ def run_validation(output_dir, dataset, model_discrete=False,
         runtime = time.time() - t_start
         with span('mmlf.val.save'):
             valset.save_batch(output_dir, np.asarray(index)[None], mean,
-                              logvar, runtime, lmm, nll_arr, post_arr)
+                              logvar, runtime, lmm, nll_arr, post_arr,
+                              sample=sample)
 
         nll_eval = metrics['nll']
         print(metrics['kld_um'], metrics['kld_mm'], metrics['kld'])
