@@ -26,6 +26,8 @@ from mmlf_tpu_torch.utils.imgio import save_img
 from mmlf_tpu_torch.validate import cluster as C
 from mmlf_tpu_torch.validate import sparsify as S
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SMALL = dict(model_chs=8, model_views=9, model_in_blocks=1,
              model_out_blocks=2, model_uncert=True)
 

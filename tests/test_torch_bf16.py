@@ -32,6 +32,8 @@ from mmlf_tpu_torch.ops.kernels import conv_block as C
 from mmlf_tpu_torch.ops.kernels.window_gather import window_gather
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 GRAD_NAMES = ('dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2', 'db2')
 
 

@@ -27,6 +27,8 @@ from mmlf_tpu_torch.train import loop
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 from mmlf_tpu_torch.validate.cli import run_validation
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 # the bf16 output tolerance of tests/test_torch_bf16.py
 OUT_TOL = 2e-2
 

@@ -16,6 +16,8 @@ from mmlf_tpu.train import checkpoint as jckpt
 from mmlf_tpu_torch.config import Config
 from mmlf_tpu_torch.train import checkpoint as ckpt
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 WAIT = 30
 
 

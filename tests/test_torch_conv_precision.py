@@ -19,6 +19,8 @@ from torch.nn import functional as F
 from mmlf_tpu_torch.ops.kernels import build
 from mmlf_tpu_torch.ops.kernels import conv_block as C
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 K = 4 * 280          # GEMM depth of an out_net conv (4 taps × 280 channels)
 STAGE = 16           # depth of one stage's chain in the tensor core
 FACTOR = 4.0         # the bound the card test holds K3 to

@@ -20,6 +20,8 @@ from mmlf_tpu_torch.ops.kernels import conv_block as C
 from mmlf_tpu_torch.ops.kernels import posterior as K
 from mmlf_tpu_torch.ops.kernels import window_gather as W
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 # the kernel's exponential is ex2.approx on a pre-scaled argument (a few
 # ulp), against expf and a division in the plain version
 TOL = dict(rtol=1e-4, atol=1e-6)

@@ -19,6 +19,8 @@ from mmlf_tpu_torch.models import build_model
 from mmlf_tpu_torch.ops.codecs import mpi_to_weights
 from mmlf_tpu_torch.train import loop
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(ROOT, 'benchmark')
 DPP_PATH = os.path.join(BENCH_DIR, 'nets', 'dpp.py')

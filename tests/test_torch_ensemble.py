@@ -15,6 +15,8 @@ from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
 from mmlf_tpu.utils.convert import torch_state_to_flax
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SMALL = dict(model_chs=6, model_views=3, model_in_blocks=1,
              model_out_blocks=2, model_uncert=True)
 GRID = (-3.5, 3.5, 0.1)

@@ -24,6 +24,8 @@ from mmlf_tpu_torch.export import (build_inference, export_inference,
                                    inference_fn, load_exported, main)
 from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SMALL = dict(model_chs=8, model_views=9, model_in_blocks=1,
              model_out_blocks=2, model_uncert=True)
 # the ensemble at 7 members (arange(-3.5, 3.5, 1.0)), as test_export.py
@@ -289,22 +291,23 @@ def test_export_guards(ckpt, tmp_path):
         fn_u8(*_stacks(32), 0.0)
 
 
-# The U-Net exports (tests/test_torch_unet.py) and so does the INN: its case
-# now exports a JAX-initialised INN run with both packages and holds the
-# port's artifact to mmlf_tpu.export's; the invertible net still raises.
-@pytest.mark.parametrize('flag,item', [('model_inn', 'the INN'),
-                                       ('model_invertible', 'the INN')])
-def test_unported_checkpoints_raise(tmp_path, flag, item):
-    if flag == 'model_invertible':
-        path = write_checkpoint(str(tmp_path))
-        state = torch.load(os.path.join(path, 'checkpoint.pt'),
-                           weights_only=False)
-        state['hyper_parameters'][flag] = True
-        torch.save(state, os.path.join(path, 'checkpoint.pt'))
-        with pytest.raises(NotImplementedError,
-                           match='INNs are not supported anymore'):
-            export_inference(path, 32, 32)
-        return
+def test_invertible_checkpoint_export_raises(tmp_path):
+    """A checkpoint that stores --model_invertible (the reference's INN)
+    is refused by ``export_inference``."""
+    path = write_checkpoint(str(tmp_path))
+    state = torch.load(os.path.join(path, 'checkpoint.pt'),
+                       weights_only=False)
+    state['hyper_parameters']['model_invertible'] = True
+    torch.save(state, os.path.join(path, 'checkpoint.pt'))
+    with pytest.raises(NotImplementedError,
+                       match='INNs are not supported anymore'):
+        export_inference(path, 32, 32)
+
+
+def test_inn_run_exports_like_jax(tmp_path):
+    """A JAX-initialised --model_inn run directory exported by both
+    packages: the port's fp32 artifact's outputs equal mmlf_tpu.export's
+    (1e-5)."""
     import jax.numpy as jnp
     from mmlf_tpu.models.inn import INN as JINN
     from mmlf_tpu.train import checkpoint as jckpt

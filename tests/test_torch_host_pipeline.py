@@ -26,6 +26,8 @@ from mmlf_tpu_torch.data.hci4d import HCI4D
 from mmlf_tpu_torch.train import loop
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 # the batched augmentation against the per-sample chain: the i and d
 # stacks shift rows then columns there, columns then rows here, so each
 # value may differ by a few float32 roundings of values below ~2

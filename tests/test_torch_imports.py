@@ -10,6 +10,8 @@ import sys
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, 'mmlf_tpu_torch')
 

@@ -47,6 +47,8 @@ from mmlf_tpu_torch.utils.convert import (coupling_block_state,
                                           state_dict_from_jax)
 from mmlf_tpu_torch.validate.cli import run_validation
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SMALL = dict(model_views=9, model_in_blocks=1, model_out_blocks=1,
              model_inn=True)
 METRICS = ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll')

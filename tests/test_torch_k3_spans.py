@@ -24,6 +24,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SRC = Path(__file__).resolve().parents[1] / 'mmlf_tpu_torch' / 'csrc' / \
     'conv_block.cu'
 # the card's opt-in shared memory a block (H100: 227 KB)

@@ -41,6 +41,7 @@ from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 from mmlf_tpu_torch.validate.cli import run_validation
 
 import torch_mesh_val_ranks
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
 from test_torch_validate import _checkpoint
 
 RANKS = 2

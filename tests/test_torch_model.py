@@ -20,6 +20,8 @@ from mmlf_tpu_torch.utils.convert import (load_checkpoint_pt,
                                           state_dict_from_jax)
 from mmlf_tpu_torch.utils.fold_bn import fold_batchnorm
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SMALL = dict(model_chs=8, model_views=3, model_in_blocks=2,
              model_out_blocks=3)
 
@@ -129,27 +131,29 @@ def test_reference_checkpoint_roundtrip(tmp_path):
     model.load_state_dict(sd, strict=True)
 
 
-# The U-Net is ported (tests/test_torch_unet.py) and so is the INN
-# (tests/test_torch_inn.py): an INN config builds the INN, with --model_unet
-# ignored as in the JAX package, and its weights and forward are the JAX
-# INN's; --model_invertible still raises.
-@pytest.mark.parametrize('flags', [('model_unet', 'model_inn'),
-                                   ('model_inn',), ('model_invertible',)],
-                         ids=['model_unet_with_inn', 'model_inn',
-                              'model_invertible'])
-def test_unported_models_raise(flags):
+def test_model_invertible_raises():
+    """--model_invertible (the reference's INN) is refused by
+    ``build_model`` and ``FeedForward.from_config``."""
     from mmlf_tpu_torch.models import build_model
-    cfg = Config(**SMALL, **dict.fromkeys(flags, True)).finalize()
-    if 'model_inn' not in flags:
-        with pytest.raises(NotImplementedError,
-                           match='INNs are not supported anymore'):
-            build_model(cfg)
-        with pytest.raises(NotImplementedError,
-                           match='INNs are not supported anymore'):
-            FeedForward.from_config(cfg)
-        return
+    cfg = Config(**SMALL, model_invertible=True).finalize()
+    with pytest.raises(NotImplementedError,
+                       match='INNs are not supported anymore'):
+        build_model(cfg)
+    with pytest.raises(NotImplementedError,
+                       match='INNs are not supported anymore'):
+        FeedForward.from_config(cfg)
+
+
+@pytest.mark.parametrize('flags', [('model_unet', 'model_inn'),
+                                   ('model_inn',)],
+                         ids=['model_unet_with_inn', 'model_inn'])
+def test_build_model_makes_the_jax_inn(flags):
+    """An INN config builds the INN, with --model_unet ignored as in the
+    JAX package, and its weights and eval forward are the JAX INN's."""
     import jax
     from mmlf_tpu.models.inn import INN as JINN
+    from mmlf_tpu_torch.models import build_model
+    cfg = Config(**SMALL, **dict.fromkeys(flags, True)).finalize()
     stacks = [np.random.default_rng(j).random((1, 3, 8, 8, 3), np.float32)
               for j in range(4)]
     jm = JINN.from_config(JConfig(**SMALL, **dict.fromkeys(flags, True))

@@ -31,6 +31,8 @@ from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 from mmlf_tpu_torch.utils.msgpack import unpackb
 from mmlf_tpu_torch.validate.cli import load_model_state, run_validation
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 METRICS = ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll')
 
 
@@ -201,15 +203,13 @@ def test_serve_msgpack_run_dir_matches_jax(jax_run):
         assert got[k] == pytest.approx(want[k], rel=1e-3, abs=1e-6), k
 
 
-def test_bf16_run_dir_raises_with_its_item(jax_run, tmp_path):
+def test_bf16_run_dir_validates_exports_and_serves_like_jax(jax_run,
+                                                            tmp_path):
     """A JAX ``--bf16`` run directory (here the trained run with ``bf16``
     in its stored config): both validate CLIs evaluate it with the bf16
     trunk and agree, the port's tiled ESE and its export run it in bf16,
     and both servers answer for it.  bf16 rounds, so the metrics within
-    1e-2 relative (tests/test_torch_bf16.py).  A bf16 INN run (once
-    unported, raising with its item; now a JAX-initialised ``--model_inn
-    --bf16`` run directory) goes through both validate CLIs, within the
-    same 1e-2."""
+    1e-2 relative (tests/test_torch_bf16.py)."""
     data, run = jax_run
     dirs = []
     for name in ('jax', 'torch'):
@@ -238,9 +238,15 @@ def test_bf16_run_dir_raises_with_its_item(jax_run, tmp_path):
     for k in ('mse', 'badpix_007'):
         assert served[k] == pytest.approx(want[k], rel=1e-2, abs=1e-6), k
 
+
+def test_bf16_inn_run_dir_validates_like_jax(jax_run, tmp_path):
+    """A JAX-initialised ``--model_inn --bf16`` run directory goes through
+    both validate CLIs on the trained run's scene, the metrics within
+    1e-2 relative."""
     import jax
     from mmlf_tpu.models.inn import INN as JINN
     from mmlf_tpu.train import checkpoint as jckpt
+    data, _ = jax_run
     jcfg = JConfig(model_views=9, model_in_blocks=1, model_out_blocks=1,
                    model_inn=True, bf16=True).finalize()
     variables = jax.device_get(dict(jax.jit(JINN.from_config(jcfg).init)(

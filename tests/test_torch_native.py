@@ -13,6 +13,8 @@ from mmlf_tpu.ops.masks import create_mask_texture as jax_mask
 from mmlf_tpu_torch import native
 from mmlf_tpu_torch.ops.masks import create_mask_texture
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

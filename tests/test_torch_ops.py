@@ -18,6 +18,8 @@ from mmlf_tpu_torch.ops import codecs as tC
 from mmlf_tpu_torch.ops import masks as tM
 from mmlf_tpu_torch.ops import shift as tS
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 
 @pytest.mark.parametrize('n_steps', [36, 70, 108])
 def test_codecs_match_jax(n_steps):

@@ -31,6 +31,7 @@ from mmlf_tpu_torch.train.cli import main as train_main
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 
 import torch_parallel_ranks
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
 
 RANKS = 2
 TIMEOUT_S = 120     # each run of the ranks; a hung run fails, never hangs

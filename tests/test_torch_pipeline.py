@@ -20,6 +20,8 @@ from mmlf_tpu_torch.data import pipeline as P
 from mmlf_tpu_torch.data.hci4d import HCI4D
 from mmlf_tpu_torch.ops.kernels.window_gather import window_gather
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 PS = 32
 # fp32 rounding of a lerp, a 3-term colour mix and a mean, taken in
 # another order than the JAX package's matmul formulation

@@ -16,6 +16,8 @@ import torch
 from mmlf_tpu.ops.pallas import posterior as jP
 from mmlf_tpu_torch.ops.kernels import posterior as tP
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 
 def _inputs(rng, k, p, kb):
     means = rng.uniform(-3, 3, (k, p)).astype(np.float32)

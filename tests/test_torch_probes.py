@@ -22,6 +22,8 @@ from mmlf_tpu_torch.ops.kernels import window_gather as W
 from mmlf_tpu_torch.probes import block_probe as BP
 from mmlf_tpu_torch.probes import gather_probe as GP
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -14,6 +14,8 @@ from mmlf_tpu_torch.data import transforms as T
 from mmlf_tpu_torch.data.hci4d import HCI4D
 from mmlf_tpu_torch.data.synth import generate_dataset
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SIZE, MEMBERS, BINS = 32, 5, 12
 
 

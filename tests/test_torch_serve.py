@@ -26,6 +26,8 @@ from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
 from mmlf_tpu_torch.serve import InferenceEngine, main, make_server
 from mmlf_tpu_torch.utils import pfm
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 # the served metrics and result.pfm against the JAX package's
 # (tests/test_torch_validate.py)
 METRIC_REL = 1e-3

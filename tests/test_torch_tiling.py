@@ -29,6 +29,8 @@ from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 from mmlf_tpu_torch.validate import tiling as T
 from mmlf_tpu_torch.validate.cli import run_validation
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 METRICS = ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll')
 
 

@@ -21,6 +21,8 @@ from mmlf_tpu_torch.train import loop
 from mmlf_tpu_torch.utils.convert import save_checkpoint_pt
 from mmlf_tpu_torch.validate.cli import run_validation
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 PACKAGE = os.path.dirname(trace.__file__)
 SMALL = dict(model_chs=4, model_in_blocks=1, model_out_blocks=1,
              model_uncert=True)

@@ -30,6 +30,8 @@ from mmlf_tpu_torch.train import loop
 from mmlf_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 
 @pytest.fixture(scope='module')
 def data_dirs(tmp_path_factory):
@@ -371,13 +373,11 @@ def test_accum_exact_guards():
     loop.check_accum(Config(**base).finalize())
 
 
-# Each case once paired a ported flag with --model_inn, which raised.  The
-# INN is ported: an INN case now trains one step from the JAX package's
-# initial variables, and its log row (train loss, val IB loss, mse, badpix
-# at step 0) is held against JAX's train() with the flags the JAX package
-# acts on for an INN (INN_JAX_RUN: it ignores --pallas_trunk, --model_unet
-# and --remat, and its --mesh_data step is its single-device step, tests/
-# test_parallel.py).  --model_invertible still raises.
+# An INN case trains one step from the JAX package's initial variables,
+# and its log row (train loss, val IB loss, mse, badpix at step 0) is held
+# against JAX's train() with the flags the JAX package acts on for an INN
+# (INN_JAX_RUN: it ignores --pallas_trunk, --model_unet and --remat, and
+# its --mesh_data step is its single-device step, tests/test_parallel.py).
 INN_JAX_RUNS = {'plain': {}, 'host': {'host_pipeline': True},
                 'host_bf16': {'host_pipeline': True, 'bf16': True}}
 
@@ -442,28 +442,28 @@ def inn_mesh_rows(data_dirs, inn_jax_rows, tmp_path_factory):
     return [_rows(c['out'])[0] for c in cases.values()]
 
 
-@pytest.mark.parametrize('kw,match', [
-    ({'pallas_trunk': True, 'model_unet': True, 'model_inn': True},
-     'item 7'),
-    ({'bf16': True, 'host_pipeline': True, 'model_inn': True}, 'item 7'),
-    ({'cache_bf16': True, 'host_pipeline': True, 'model_inn': True},
-     'item 7'),
-    ({'remat': True, 'mesh_data': 2, 'model_inn': True}, 'item 7'),
-    ({'host_pipeline': True, 'mesh_data': 2, 'model_inn': True}, 'ROADMAP'),
-    ({'mesh_data': 2, 'model_inn': True}, 'ROADMAP'),
-    ({'model_unet': True, 'mesh_data': 2, 'model_inn': True}, 'ROADMAP'),
-    ({'model_inn': True}, 'ROADMAP'),
-    ({'model_invertible': True}, 'INNs are not supported')])
-def test_unported_flags_raise(tmp_path, kw, match, request):
-    """--model_invertible raises; every --model_inn case trains (two gloo
-    ranks under --mesh_data 2) and its step-0 row agrees with JAX's within
-    rel 1e-3 (bf16: 2e-2)."""
-    if not kw.get('model_inn'):
-        with pytest.raises(NotImplementedError, match=match):
-            loop.train(Config(**kw).finalize(), str(tmp_path), device='cpu')
-        return
-    data_dirs = request.getfixturevalue('data_dirs')
-    want, init = request.getfixturevalue('inn_jax_rows')[INN_JAX_RUN(kw)]
+def test_model_invertible_raises(tmp_path):
+    """--model_invertible (the reference's INN) is refused by ``train()``."""
+    with pytest.raises(NotImplementedError, match='INNs are not supported'):
+        loop.train(Config(model_invertible=True).finalize(), str(tmp_path),
+                   device='cpu')
+
+
+@pytest.mark.parametrize('kw', [
+    {'pallas_trunk': True, 'model_unet': True, 'model_inn': True},
+    {'bf16': True, 'host_pipeline': True, 'model_inn': True},
+    {'cache_bf16': True, 'host_pipeline': True, 'model_inn': True},
+    {'remat': True, 'mesh_data': 2, 'model_inn': True},
+    {'host_pipeline': True, 'mesh_data': 2, 'model_inn': True},
+    {'mesh_data': 2, 'model_inn': True},
+    {'model_unet': True, 'mesh_data': 2, 'model_inn': True},
+    {'model_inn': True}],
+    ids=lambda kw: '+'.join(k for k in kw if k != 'model_inn') or 'alone')
+def test_inn_trains_like_jax_under_flag_combinations(tmp_path, kw, data_dirs,
+                                                     inn_jax_rows, request):
+    """Every --model_inn case trains (two gloo ranks under --mesh_data 2)
+    and its step-0 row agrees with JAX's within rel 1e-3 (bf16: 2e-2)."""
+    want, init = inn_jax_rows[INN_JAX_RUN(kw)]
     if kw in INN_MESH_SHARED:
         got = request.getfixturevalue('inn_mesh_rows')[
             INN_MESH_SHARED.index(kw)]

@@ -11,6 +11,8 @@ import pytest
 from mmlf_tpu.data import transforms as JT
 from mmlf_tpu_torch.data import transforms as T
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 
 def _sample(seed: int = 0, n: int = 5, h: int = 26, w: int = 30, k: int = 3):
     rng = np.random.default_rng(seed)

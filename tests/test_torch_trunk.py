@@ -21,6 +21,8 @@ from mmlf_tpu_torch.models.pallas_trunk import orient_kernel
 from mmlf_tpu_torch.ops.kernels import conv_block as C
 from mmlf_tpu_torch.utils.convert import state_dict_from_jax
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 # (relu_in, affine_in): an inner block and the chain entry
 VARIANTS = [(True, True), (False, False)]
 GRAD_NAMES = ('dx', 'dsi', 'dti', 'dw1', 'db1', 'dw2', 'db2')

@@ -17,6 +17,8 @@ from mmlf_tpu_torch.config import Config
 from mmlf_tpu_torch.models.feed_forward import FeedForward, init_live_
 from mmlf_tpu_torch.validate.cli import run_validation
 
+import torch_threads  # noqa: F401  torch's share of the CPUs under xdist
+
 SMALL = dict(model_chs=8, model_views=9, model_in_blocks=1,
              model_out_blocks=2, model_uncert=True)
 METRICS = ('mse', 'badpix', 'kld', 'kld_mm', 'kld_um', 'nll')
@@ -82,12 +84,12 @@ def test_validate_matches_jax(case, dataset, tmp_path):
 
 
 @pytest.mark.parametrize('kw', [{'mesh_space': 2}, {'mesh_ensemble': 2}])
-def test_unported_options_raise(kw, dataset, tmp_path):
-    """--mesh_space and --mesh_ensemble, once unported, now run: the
-    library entry starts two gloo ranks itself and its ESE metrics and
-    artifacts agree with the JAX package's with the same option (rel 1e-3,
-    5e-4; tests/test_torch_mesh_val.py runs the other cases); its report
-    lists each rank's launch counts."""
+def test_mesh_options_validate_like_jax(kw, dataset, tmp_path):
+    """--mesh_space and --mesh_ensemble: the library entry starts two gloo
+    ranks itself and its ESE metrics and artifacts agree with the JAX
+    package's with the same option (rel 1e-3, 5e-4;
+    tests/test_torch_mesh_val.py runs the other cases); its report lists
+    each rank's launch counts."""
     jdir, tdir = str(tmp_path / 'jax'), str(tmp_path / 'torch')
     for d in (jdir, tdir):
         _checkpoint(d, True)
